@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
+envs, RandomBiasedAI (bias 5) for both players:
+
+1. device: the card's name, count, power limit;
+2. build: compiles the four CUDA kernels from ``microrts_tpu_torch/kernels/
+   csrc`` (``-Xptxas -v`` report printed);
+3. realistic states: runs the plain PyTorch path on the card until the
+   recorded kernel inputs hold busy units, kept produces and completing
+   attacks (at least 20), harvests and returns;
+4. kernel vs plain: every kernel output is ``torch.equal`` to its plain
+   version on those inputs (tolerance: exact); both are timed with CUDA
+   events;
+5. main path: ``VecGridnetEnv`` + ``random_bot`` through the kernels next to
+   the plain path, same start and uniforms, 256 ticks with auto-resets;
+   state, obs, rewards and dones must be equal at every tick, and the
+   launch counters must read actor 2, decode 2, issue_env 2, cycle 1 per
+   step; then a steady window gives env-steps/s;
+6. one JSON line of every kernel, the ``nvidia-smi`` line, and as the last
+   line ``{"ok": true, "device": {...}}``.
+
+Any failure raises and the exit code is not 0.  Without a CUDA device it
+exits with code 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+B = 1024
+MAP = "maps/16x16/basesWorkers16x16.xml"
+BIAS = 5.0
+MIN_TICKS = 300          # phase 3: at least this many plain ticks
+MAX_TICKS = 1500         # ... and at most this many while events are missing
+MIN_ATTACKS = 20         # completing attacks wanted in the recorded inputs
+MAIN_TICKS = 256         # phase 5: compared ticks
+MAX_STEPS = 96           # phase 5: episode cap, so that resets happen
+TIME_TICKS = 200         # phase 5: timed window
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, n: int = 50, warm: int = 3) -> float:
+    import torch
+    for _ in range(warm):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def max_abs(x, y) -> int:
+    return int((x.long() - y.long()).abs().max().item()) if x.numel() else 0
+
+
+def expect_equal(name, pairs):
+    """pairs: [(label, kernel tensor, plain tensor)]; returns max |diff|."""
+    import torch
+    err = 0
+    for label, k, p in pairs:
+        if k.shape != p.shape or k.dtype != p.dtype:
+            raise AssertionError(f"{name}: {label} is {k.dtype}{tuple(k.shape)}"
+                                 f", plain {p.dtype}{tuple(p.shape)}")
+        e = max_abs(k, p)
+        err = max(err, e)
+        if not torch.equal(k, p):
+            idx = (k != p).nonzero()[0].tolist()
+            raise AssertionError(
+                f"{name}: {label} differs from the plain version at {idx}: "
+                f"kernel {k[tuple(idx)].item()} plain {p[tuple(idx)].item()}")
+    return err
+
+
+def state_pairs(k, p):
+    from microrts_tpu_torch.engine.types import FIELD_DTYPES
+    return [(f, getattr(k, f), getattr(p, f)) for f in FIELD_DTYPES]
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots.scripted import random_bot, random_bot_plain
+    from microrts_tpu_torch.engine.types import (ATTACK, HARVEST, PRODUCE,
+                                                 RETURN, Candidates)
+    from microrts_tpu_torch.env.gridnet import GridnetEnv
+    from microrts_tpu_torch.env.vec import VecGridnetEnv
+    from microrts_tpu_torch.utils.assets import asset_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = smi_line()
+    print(f"[1] device: {kind} x{count}; nvidia-smi: {smi}", flush=True)
+
+    t0 = time.perf_counter()
+    secs = KN.build()
+    print(f"[2] build: {secs:.1f} s for {len(KN.NAMES)} kernels "
+          f"(wall {time.perf_counter() - t0:.1f} s)", flush=True)
+    for name in KN.NAMES:
+        for line in KN.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"    {name}: {line.strip()}")
+
+    path = asset_path(MAP)
+    kenv = GridnetEnv(path, device=dev)
+    penv = GridnetEnv(path, device=dev, plain=True)
+    cfg = kenv.cfg.engine
+    H, W = kenv.h, kenv.w
+    weights = (1.0, 1.0, BIAS, BIAS, 1.0, BIAS)
+    pbot = random_bot(penv, BIAS)
+    kbot = random_bot(kenv, BIAS)
+    peng = penv.engine
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def uniforms():
+        return (torch.rand((B, H, W, 2), generator=gen, device=dev),
+                torch.rand((B, H, W, 2), generator=gen, device=dev))
+
+    # ---- [3] realistic states from the plain path
+    t0 = time.perf_counter()
+    s = penv.reset(B)
+    records = []
+    seen = dict(busy=0, produce_kept=0, attack=0, harvest=0, ret=0)
+    tick = 0
+
+    def wanting():
+        return min(seen.values()) == 0 or seen["attack"] < MIN_ATTACKS
+
+    while tick < MIN_TICKS or (wanting() and tick < MAX_TICKS):
+        u0, u1 = uniforms()
+        a0 = pbot(s, 0, u0)
+        a1 = pbot(s, 1, u1)
+        c0 = penv.decode(s, a0, 0)
+        s1 = peng.issue_env(s, c0)
+        c1 = penv.decode(s1, a1, 1)
+        s2 = peng.issue_env(s1, c1)
+        comp = s2.busy & (s2.aticks <= 1)
+        ev = dict(busy=int(s.busy.sum()),
+                  produce_kept=int((c0.atype == PRODUCE).sum()
+                                   + (c1.atype == PRODUCE).sum()),
+                  attack=int((comp & (s2.atype == ATTACK)).sum()),
+                  harvest=int((comp & (s2.atype == HARVEST)).sum()),
+                  ret=int((comp & (s2.atype == RETURN)).sum()))
+        new_kind = any(ev[k] and not seen[k] for k in ev)
+        more_attacks = ev["attack"] and seen["attack"] < MIN_ATTACKS
+        if new_kind or more_attacks or tick in (MIN_TICKS // 2, MIN_TICKS - 1):
+            records.append(dict(tick=tick, s=s, u0=u0, u1=u1, a0=a0, a1=a1,
+                                s1=s1, c0=c0, c1=c1, s2=s2, ev=ev))
+            for k in ev:
+                seen[k] += ev[k]
+        s, _ = peng.cycle(s2)
+        tick += 1
+    torch.cuda.synchronize()
+    print(f"[3] {tick} plain ticks in {time.perf_counter() - t0:.1f} s; "
+          f"{len(records)} recorded ticks {[r['tick'] for r in records]}; "
+          f"events in them {seen}", flush=True)
+    missing = [k for k, v in seen.items() if v == 0]
+    if missing:
+        raise AssertionError(f"recorded inputs hold no {missing}")
+    realistic = s
+
+    # ---- [4] every kernel against its plain version, on every record
+    errs = {n: 0 for n in KN.NAMES}
+    for r in records:
+        for p, st, u, a in ((0, r["s"], r["u0"], r["a0"]),
+                            (1, r["s"], r["u1"], r["a1"])):
+            act, mask = KN.ACTOR(cfg, st, p, u=u, weights=weights, masks=True)
+            errs["actor"] = max(errs["actor"], expect_equal("actor", [
+                ("actions", act, random_bot_plain(penv, st, p, u, weights)),
+                ("actions vs recorded", act, a),
+                ("mask", mask, penv.masks_plain(st, p))]))
+        for p, st, a, c in ((0, r["s"], r["a0"], r["c0"]),
+                            (1, r["s1"], r["a1"], r["c1"])):
+            kc = KN.DECODE(kenv.cfg, st, a, p)
+            errs["decode"] = max(errs["decode"], expect_equal("decode", [
+                (f, getattr(kc, f), getattr(c, f)) for f in Candidates.FIELDS]))
+        for st, c in ((r["s"], r["c0"]), (r["s1"], r["c1"])):
+            ks = KN.ISSUE_ENV(cfg, st, c)
+            errs["issue_env"] = max(errs["issue_env"], expect_equal(
+                "issue_env", state_pairs(ks, peng.issue_env_plain(st, c))))
+        ks, kd = KN.CYCLE(cfg, r["s2"])
+        ps, pd = peng.cycle_plain(r["s2"])
+        errs["cycle"] = max(errs["cycle"], expect_equal(
+            "cycle", state_pairs(ks, ps) + [("done", kd, pd)]))
+    torch.cuda.synchronize()
+    print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
+          f"(max |diff| {errs})", flush=True)
+
+    r = records[-1]
+    st, st1, st2 = r["s"], r["s1"], r["s2"]
+    ss = ("utype", "owner", "terrain", "busy", "carried")
+    timing = {
+        "actor": (lambda: KN.ACTOR(cfg, st, 0, u=r["u0"], weights=weights),
+                  lambda: random_bot_plain(penv, st, 0, r["u0"], weights),
+                  nbytes(*[getattr(st, f) for f in ss], st.resources,
+                         r["u0"], r["a0"])),
+        "decode": (lambda: KN.DECODE(kenv.cfg, st1, r["a1"], 1),
+                   lambda: penv.decode_plain(st1, r["a1"], 1),
+                   nbytes(r["a1"], *[getattr(st1, f) for f in (
+                       "utype", "owner", "busy", "atype", "aparam",
+                       "aptype")], st1.resources,
+                       *[getattr(r["c1"], f) for f in Candidates.FIELDS])),
+        "issue_env": (lambda: KN.ISSUE_ENV(cfg, st1, r["c1"]),
+                      lambda: peng.issue_env_plain(st1, r["c1"]),
+                      nbytes(*[getattr(st1, f) for f in ss],
+                             *[getattr(r["c1"], f) for f in Candidates.FIELDS],
+                             *[getattr(st1, f) for f in (
+                                 "atype", "aparam", "atx", "aty", "aptype",
+                                 "aticks", "aorder", "atime")],
+                             st1.time, st1.resources, st1.order_ctr,
+                             *[getattr(st2, f) for f in (
+                                 "busy", "atype", "aparam", "atx", "aty",
+                                 "aptype", "aticks", "aorder", "atime",
+                                 "order_ctr")])),
+        "cycle": (lambda: KN.CYCLE(cfg, st2),
+                  lambda: peng.cycle_plain(st2),
+                  2 * nbytes(*[getattr(st2, f) for f in (
+                      "utype", "owner", "hp", "carried", "uid", "busy",
+                      "atype", "aparam", "atx", "aty", "aptype", "aticks",
+                      "aorder", "atime", "time", "resources", "next_id")])
+                  + B),
+    }
+    times = {}
+    for name, (kfn, pfn, byts) in timing.items():
+        kms = cuda_ms(kfn, n=200)
+        pms = cuda_ms(pfn, n=20)
+        bound = byts / HBM_BYTES_PER_S * 1e3
+        times[name] = (kms, pms, bound, byts)
+        print(f"    {name:9s} kernel {kms * 1e3:9.2f} us  plain "
+              f"{pms * 1e3:10.2f} us  bound {bound * 1e3:6.2f} us "
+              f"({byts / 1e6:.2f} MB)", flush=True)
+
+    # ---- [5] the main path through the kernels, next to the plain path
+    kvec = VecGridnetEnv(kenv, B, max_steps=MAX_STEPS)
+    pvec = VecGridnetEnv(penv, B, max_steps=MAX_STEPS)
+    gen.manual_seed(1)
+    steps0 = torch.randint(0, MAX_STEPS, (B,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    ks, ksteps = realistic.clone(), steps0.clone()
+    ps, psteps = realistic.clone(), steps0.clone()
+    resets = 0
+    t0 = time.perf_counter()
+    KN.reset_counts()
+    for t in range(MAIN_TICKS):
+        u0, u1 = uniforms()
+        ka0, ka1 = kbot(ks, 0, u0), kbot(ks, 1, u1)
+        ks, ksteps, kobs, krew, kdn, krm = kvec.step(ks, ksteps, ka0, ka1)
+        pa0, pa1 = pbot(ps, 0, u0), pbot(ps, 1, u1)
+        ps, psteps, pobs, prew, pdn, prm = pvec.step(ps, psteps, pa0, pa1)
+        expect_equal(f"main path tick {t}", state_pairs(ks, ps) + [
+            ("actions p0", ka0, pa0), ("actions p1", ka1, pa1),
+            ("steps", ksteps, psteps), ("obs", kobs, pobs),
+            ("rewards", krew, prew), ("dones", kdn, pdn),
+            ("reset_mask", krm, prm)])
+        resets += int(krm.sum())
+    counts = {k.name: k.launches for k in KN.KERNELS}
+    torch.cuda.synchronize()
+    want = dict(actor=2, decode=2, issue_env=2, cycle=1)
+    bad = {n: counts[n] for n in want if counts[n] != want[n] * MAIN_TICKS}
+    if bad:
+        raise AssertionError(f"launch counts {counts}, want per step {want}")
+    if resets == 0:
+        raise AssertionError("no env reset during the main path")
+    print(f"[5] main path: {MAIN_TICKS} ticks identical to the plain path, "
+          f"{resets} env resets, launches {counts} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def run(vec, bot, n):
+        st, sp = realistic.clone(), steps0.clone()
+        for _ in range(3):
+            u0, u1 = uniforms()
+            st, sp, *_ = vec.step(st, sp, bot(st, 0, u0), bot(st, 1, u1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            u0, u1 = uniforms()
+            st, sp, obs, rew, dn, rm = vec.step(st, sp, bot(st, 0, u0),
+                                                bot(st, 1, u1))
+        torch.cuda.synchronize()
+        return B * n / (time.perf_counter() - t0)
+
+    sps = run(kvec, kbot, TIME_TICKS)
+    sps_plain = run(pvec, pbot, TIME_TICKS // 4)
+    print(f"    env-steps/s/card: kernels {sps:.1f}, plain {sps_plain:.1f} "
+          f"(B={B}, 16x16, {TIME_TICKS} steps; {kind}, {smi})", flush=True)
+
+    # ---- [6] results
+    kernels = []
+    for k in KN.KERNELS:
+        kms, pms, bound, byts = times[k.name]
+        kernels.append(dict(
+            name=k.name, status="equal to plain", route="cuda",
+            source=k.source,
+            replaces=k.replaces, launches=counts[k.name],
+            max_abs_err=errs[k.name], ms=kms, plain_ms=pms, bound_ms=bound,
+            bound_by="bytes", library_ms=None))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

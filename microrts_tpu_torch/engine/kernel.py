@@ -1,0 +1,455 @@
+"""The rules engine on batched planes: legality masks, issue and cycle.
+
+A port of ``microrts_tpu.engine.kernel`` (the Java hot loop re-designed as
+plane ops, see that module's docstring for the exactness model).  Every
+function here is the plain PyTorch version, batched over the leading axis
+of ``[B, H, W]`` planes; ``issue_env`` and ``cycle`` dispatch by device:
+CPU tensors (or an engine built with ``plain=True``) take the plain
+version, CUDA tensors launch the hand-written kernels of
+``microrts_tpu_torch.kernels``.
+
+Only the full-observation fast path is ported: ``issue_env`` (issueSafe
+for decode-vetted candidates).  The full ``issue`` with its CANCEL chains
+and UTT v3's random damage are not, and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from .. import kernels as KN
+from .types import (ATTACK, DIR_X, DIR_Y, HARVEST, INF, MOVE, NONE, PRODUCE,
+                    RETURN, Candidates, EngineConfig, State)
+
+I32 = torch.int32
+
+
+# ----------------------------------------------------------------------
+# shift helpers (out-of-board cells read ``fill``)
+
+def shift(p: torch.Tensor, dx: int, dy: int, fill=0) -> torch.Tensor:
+    """out[..., y, x] = p[..., y - dy, x - dx]."""
+    if dx == 0 and dy == 0:
+        return p
+    h, w = p.shape[-2], p.shape[-1]
+    out = torch.full_like(p, fill)
+    if abs(dx) >= w or abs(dy) >= h:
+        return out
+    out[..., max(0, dy):h + min(0, dy), max(0, dx):w + min(0, dx)] = \
+        p[..., max(0, -dy):h + min(0, -dy), max(0, -dx):w + min(0, -dx)]
+    return out
+
+
+def push(p: torch.Tensor, d: int, fill=0) -> torch.Tensor:
+    """Move source-cell values to their direction-d target cell."""
+    return shift(p, DIR_X[d], DIR_Y[d], fill)
+
+
+def pull(p: torch.Tensor, d: int, fill=0) -> torch.Tensor:
+    """Read, at each source cell, the value at its direction-d target."""
+    return shift(p, -DIR_X[d], -DIR_Y[d], fill)
+
+
+def select_dir(stack: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """stack[..., d] picked per cell by ``param``; a param outside 1..3
+    picks direction 0, as the JAX package's unrolled select does."""
+    d = torch.where((param >= 1) & (param <= 3), param, 0).long()
+    return torch.gather(stack, -1, d.unsqueeze(-1)).squeeze(-1)
+
+
+def sum2(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the two trailing axes, in int32."""
+    return x.sum(dim=(-2, -1), dtype=I32)
+
+
+def iota(h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=I32, device=device),
+                            torch.arange(w, dtype=I32, device=device),
+                            indexing="ij")
+    return xs, ys
+
+
+class Engine:
+    """The engine's functions closed over one ``EngineConfig``.
+
+    ``plain=True`` makes ``issue_env`` and ``cycle`` run their plain
+    PyTorch versions on any device (the kernels' oracle on the card)."""
+
+    def __init__(self, cfg: EngineConfig, plain: bool = False):
+        self.cfg = cfg
+        self.plain = plain
+        self.H, self.W, self.T = cfg.height, cfg.width, cfg.num_types
+        self.R = cfg.max_range
+        self._tables: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+    # ------------------------------------------------------------------
+    def lut(self, name: str, device) -> torch.Tensor:
+        """UTT column ``name`` as a tensor on ``device`` (int32, or bool
+        for flags; ``produces`` is ``[T, T]``)."""
+        key = (name, torch.device(device))
+        if key not in self._tables:
+            vals = getattr(self.cfg, name)
+            dt = torch.bool if isinstance(
+                vals[0], bool) or name == "produces" else I32
+            self._tables[key] = torch.tensor(vals, dtype=dt, device=device)
+        return self._tables[key]
+
+    def _tprop(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return self.lut(name, t.device)[t]
+
+    def _ctx(self, state: State):
+        """(type index int64 clipped to [0, T-1], exists)."""
+        t = (state.utype.long() - 1).clamp(0, self.T - 1)
+        return t, state.utype > 0
+
+    def _use_kernel(self, t: torch.Tensor) -> bool:
+        return not self.plain and t.device.type != "cpu"
+
+    # ------------------------------------------------------------------
+    # legality (Unit.getUnitActions, Unit.java:368-522: standing units
+    # and terrain only)
+
+    def _free_d(self, state: State) -> torch.Tensor:
+        free = (state.terrain == 0) & (state.utype == 0)
+        return torch.stack([pull(free, d, False) for d in range(4)], -1)
+
+    def legal_masks(self, state: State, player: int) -> Dict[str, torch.Tensor]:
+        """Per-cell legality planes for ``player`` (kernel.py:742-792):
+        bool ``can_act [B,H,W]``, ``type [..,6]``, ``move``/``harvest``/
+        ``ret``/``produce_dir [..,4]``, ``produce_type [..,T]``,
+        ``produce_pair [..,4,T]`` and ``attack [..,(2R+1)^2]``."""
+        t, exists = self._ctx(state)
+        tp = self._tprop
+        owner = state.owner.to(I32)
+        me = int(player)
+        can_act = exists & (owner == me) & ~state.busy
+        is_res_n = exists & tp("is_resource", t)
+        is_stock_n = exists & tp("is_stockpile", t)
+        free_d = self._free_d(state)
+
+        move_d = free_d & (can_act & tp("can_move", t))[..., None]
+        harv_d = torch.stack([pull(is_res_n, d, False) for d in range(4)], -1) \
+            & (can_act & tp("can_harvest", t) & (state.carried == 0))[..., None]
+        ret_d = torch.stack([pull(is_stock_n, d, False)
+                             & (pull(owner, d, -1) == me) for d in range(4)],
+                            -1) \
+            & (can_act & tp("can_harvest", t) & (state.carried > 0))[..., None]
+        bal = state.resources[:, 1 if me == 1 else 0]
+        afford = bal[:, None] >= self.lut("cost", t.device)[None, :]  # [B,T]
+        prod_row = self.lut("produces", t.device)[t]                  # [B,H,W,T]
+        prod_pair = ((prod_row & afford[:, None, None, :]
+                      & can_act[..., None])[..., None, :]
+                     & free_d[..., :, None])                          # [B,H,W,4,T]
+        prod_dir = prod_pair.any(-1)
+        prod_type = prod_pair.any(-2)
+
+        enemy = exists & (owner >= 0) & (owner != me)
+        rng2 = tp("attack_range", t) ** 2
+        atk_ok = can_act & tp("can_attack", t)
+        R = self.R
+        atk = torch.stack(
+            [atk_ok & ((dx * dx + dy * dy) <= rng2)
+             & shift(enemy, -dx, -dy, False)
+             for dy in range(-R, R + 1) for dx in range(-R, R + 1)], -1)
+        type_mask = torch.stack(
+            [can_act, move_d.any(-1), harv_d.any(-1), ret_d.any(-1),
+             prod_dir.any(-1), atk.any(-1)], -1)
+        return dict(can_act=can_act, type=type_mask, move=move_d,
+                    harvest=harv_d, ret=ret_d, produce_dir=prod_dir,
+                    produce_type=prod_type, produce_pair=prod_pair,
+                    attack=atk)
+
+    # ------------------------------------------------------------------
+    # issue (GameState.issueSafe :338-408, fast path)
+
+    def validate(self, state: State, cand: Candidates) -> torch.Tensor:
+        """Per cell: is this candidate legal for this unit?
+        (Unit.canExecuteAction, kernel.py:216-275.)"""
+        t, exists = self._ctx(state)
+        tp = self._tprop
+        me = state.owner.to(I32)
+        is_res_n = exists & tp("is_resource", t)
+        is_stock_n = exists & tp("is_stockpile", t)
+        free_d = self._free_d(state)
+        res_d = torch.stack([pull(is_res_n, d, False) for d in range(4)], -1)
+        own_stock_d = torch.stack(
+            [pull(is_stock_n, d, False) & (pull(me, d, -1) == me)
+             for d in range(4)], -1)
+
+        at, param = cand.atype, cand.aparam
+        pt = cand.aptype.long().clamp(0, self.T - 1)
+        legal_none = at == NONE
+        legal_move = (at == MOVE) & tp("can_move", t) & select_dir(free_d, param)
+        legal_harv = ((at == HARVEST) & tp("can_harvest", t)
+                      & (state.carried == 0) & select_dir(res_d, param))
+        legal_ret = ((at == RETURN) & tp("can_harvest", t)
+                     & (state.carried > 0) & select_dir(own_stock_d, param))
+        bal = torch.where(me == 1, state.resources[:, 1, None, None],
+                          state.resources[:, 0, None, None])
+        afford = tp("cost", pt) <= bal
+        producible = self.lut("produces", t.device)[t, pt]
+        legal_prod = ((at == PRODUCE) & producible & afford
+                      & select_dir(free_d, param))
+
+        xs, ys = iota(self.H, self.W, t.device)
+        dxp = cand.atx - xs
+        dyp = cand.aty - ys
+        rng2 = tp("attack_range", t) ** 2
+        occ = state.utype > 0
+        R = self.R
+        hit = torch.zeros_like(occ)
+        for oy in range(-R, R + 1):
+            for ox in range(-R, R + 1):
+                d2 = ox * ox + oy * oy
+                if d2 == 0 or d2 > R * R:
+                    continue
+                occ_t = shift(occ, -ox, -oy, False)
+                own_t = shift(me, -ox, -oy, -1)
+                hit = hit | ((dxp == ox) & (dyp == oy) & (d2 <= rng2)
+                             & occ_t & (own_t >= 0) & (own_t != me))
+        legal_atk = (at == ATTACK) & tp("can_attack", t) & hit
+        return exists & (legal_none | legal_move | legal_harv | legal_ret
+                         | legal_prod | legal_atk)
+
+    def eta_of(self, state: State, cand: Candidates) -> torch.Tensor:
+        """UnitAction.ETA (kernel.py:277-286; RETURN uses moveTime)."""
+        t, _ = self._ctx(state)
+        tp = self._tprop
+        pt = cand.aptype.long().clamp(0, self.T - 1)
+        at = cand.atype
+        out = torch.zeros_like(at, dtype=I32)
+        for code, val in ((ATTACK, tp("attack_time", t)),
+                          (PRODUCE, tp("produce_time", pt)),
+                          (RETURN, tp("move_time", t)),
+                          (HARVEST, tp("harvest_time", t)),
+                          (MOVE, tp("move_time", t)),
+                          (NONE, cand.aparam.to(I32))):
+            out = torch.where(at == code, val, out)
+        return out
+
+    def issue_env(self, state: State, cand: Candidates) -> State:
+        """issueSafe for decode-vetted candidates (kernel.py:456-499):
+        illegal actions become NONE(ETA of the attempt); every put cell
+        gets ``aorder = order_ctr + rank``; ``order_ctr += 2*H*W``.
+        Returns a new State that shares the unchanged board planes."""
+        if self._use_kernel(state.utype):
+            return KN.ISSUE_ENV(self.cfg, state, cand)
+        return self.issue_env_plain(state, cand)
+
+    def issue_env_plain(self, state: State, cand: Candidates) -> State:
+        t, exists = self._ctx(state)
+        ignore = ~exists | state.busy | (cand.atype < 0) | (state.owner < 0)
+        legal = self.validate(state, cand) & ~ignore
+        eta_att = self.eta_of(state, cand)
+        a_type = torch.where(legal, cand.atype, NONE)
+        a_param = torch.where(legal, cand.aparam, eta_att)
+        put = ~ignore
+        oc = state.order_ctr[:, None, None]
+        return state.replace(
+            busy=state.busy | put,
+            atype=torch.where(put, a_type, state.atype.to(I32)),
+            aparam=torch.where(put, a_param, state.aparam.to(I32)),
+            atx=torch.where(put, cand.atx, state.atx.to(I32)),
+            aty=torch.where(put, cand.aty, state.aty.to(I32)),
+            aptype=torch.where(put, cand.aptype, state.aptype.to(I32)),
+            aticks=torch.where(put, eta_att, state.aticks.to(I32)),
+            aorder=torch.where(put, oc + cand.rank, state.aorder),
+            atime=torch.where(put, state.time[:, None, None], state.atime),
+            order_ctr=state.order_ctr + 2 * self.H * self.W,
+        ).canon()
+
+    # ------------------------------------------------------------------
+    # cycle (GameState.cycle :553-571 + UnitAction.execute :338-465)
+
+    def cycle(self, state: State) -> Tuple[State, torch.Tensor]:
+        """One game tick (kernel.py:508-716); returns (state', gameover).
+        UTT v3's random damage is not ported: both paths raise."""
+        if self._use_kernel(state.utype):
+            return KN.CYCLE(self.cfg, state)
+        return self.cycle_plain(state)
+
+    def cycle_plain(self, state: State) -> Tuple[State, torch.Tensor]:
+        if not self.cfg.det_damage:
+            raise NotImplementedError(
+                "cycle: random damage (UTT v3) is not ported yet")
+        H, W, T, R = self.H, self.W, self.T, self.R
+        t, exists = self._ctx(state)
+        tp = self._tprop
+        dev = t.device
+        s = state
+        hp = s.hp.to(I32)
+        carried = s.carried.to(I32)
+        owner = s.owner.to(I32)
+        aparam = s.aparam.to(I32)
+        aorder = s.aorder
+        ticks = torch.where(s.busy, s.aticks.to(I32) - 1, s.aticks.to(I32))
+        comp = s.busy & (ticks <= 0)
+        cm = comp & (s.atype == MOVE)
+        ch = comp & (s.atype == HARVEST)
+        cr = comp & (s.atype == RETURN)
+        cp = comp & (s.atype == PRODUCE)
+        ca = comp & (s.atype == ATTACK)
+        inf = torch.full_like(aorder, INF)
+
+        dep_order = torch.where(cm, aorder, INF)
+        arr_order = inf
+        for d in range(4):
+            mvp = (cm | cp) & (aparam == d)
+            arr_order = torch.minimum(arr_order, torch.where(
+                push(mvp, d, False), push(aorder, d), INF))
+
+        # attacks: order-filtered damage sums over the attack box
+        dmg = tp("min_damage", t)
+        xs, ys = iota(H, W, dev)
+        dxp = s.atx.to(I32) - xs
+        dyp = s.aty.to(I32) - ys
+        q_d = [torch.where(push(cr & (aparam == d), d, False),
+                           push(aorder, d), INF) for d in range(4)]
+        z = torch.zeros_like(aorder)
+        dmg_total, dmg_pre_dep, dmg_post_arr = z, z, z
+        dmg_pre_ret = [z, z, z, z]
+        for oy in range(-R, R + 1):
+            for ox in range(-R, R + 1):
+                if ox == 0 and oy == 0 or ox * ox + oy * oy > R * R:
+                    continue
+                sel = ca & (dxp == ox) & (dyp == oy)
+                sp = shift(sel, ox, oy, False)
+                sd = torch.where(sp, shift(torch.where(sel, dmg, 0), ox, oy), 0)
+                so = torch.where(sp, shift(aorder, ox, oy), INF)
+                dmg_total = dmg_total + sd
+                dmg_pre_dep = dmg_pre_dep + torch.where(so < dep_order, sd, 0)
+                dmg_post_arr = dmg_post_arr + torch.where(so > arr_order, sd, 0)
+                for d in range(4):
+                    dmg_pre_ret[d] = dmg_pre_ret[d] + torch.where(
+                        so < q_d[d], sd, 0)
+
+        # harvest: per-node 4-way depletion in issue order
+        is_res_n = exists & tp("is_resource", t)
+        hv_ok = ch & tp("can_harvest", t) & (carried == 0)
+        harv_a = tp("harvest_amount", t)
+        h_val = [push(hv_ok & (aparam == d), d, False) & is_res_n
+                 for d in range(4)]
+        h_ord = torch.stack([torch.where(h_val[d], push(aorder, d), INF)
+                             for d in range(4)], -1)
+        h_amt = torch.stack([torch.where(h_val[d], push(harv_a, d), 0)
+                             for d in range(4)], -1)
+        ho_s, perm = torch.sort(h_ord, dim=-1, stable=True)
+        ha_s = torch.gather(h_amt, -1, perm)
+        hd_s = perm.to(I32)
+        prev = torch.cumsum(ha_s, -1, dtype=I32) - ha_s
+        take_s = (ho_s < INF) & (carried[..., None] - prev > 0)
+        node_taken = torch.where(take_s, ha_s, 0).sum(-1, dtype=I32)
+        node_res = carried - node_taken
+        node_removed = is_res_n & (node_taken > 0) & (node_res <= 0)
+        got = torch.zeros_like(exists)
+        amt_got = z
+        for d in range(4):
+            sel = (hd_s == d) & take_s
+            got_d = sel.any(-1)
+            mine_d = hv_ok & (aparam == d)
+            got = got | (mine_d & pull(got_d, d, False))
+            amt_got = amt_got + torch.where(
+                mine_d, pull(torch.where(sel, ha_s, 0).amax(-1), d), 0)
+
+        # returns: stockpile standing, not departing, alive at the return
+        is_stock_n = exists & tp("is_stockpile", t)
+        ret_valid = torch.zeros_like(exists)
+        for d in range(4):
+            rd = cr & (aparam == d) & (carried > 0)
+            alive = is_stock_n & (hp > dmg_pre_ret[d]) & (dep_order > q_d[d])
+            ret_valid = ret_valid | (rd & pull(alive, d, False))
+        dep = [sum2(torch.where(ret_valid & (owner == p), carried, 0))
+               for p in (0, 1)]
+
+        # produce: pay at completion; newborn IDs by row-major prefix
+        pcost = tp("cost", s.aptype.long().clamp(0, T - 1))
+        spend = [sum2(torch.where(cp & (owner == p), pcost, 0)) for p in (0, 1)]
+        cpi = cp.to(I32).reshape(-1, H * W)
+        nb_rank = (torch.cumsum(cpi, 1, dtype=I32) - cpi).reshape(-1, H, W)
+        n_born = cpi.sum(1, dtype=I32)
+
+        mv_alive = cm & (hp - dmg_pre_dep > 0)
+        hp_mid = hp - dmg_pre_dep
+
+        # compose the next board
+        standing = exists & ~cm
+        hp_std = hp - dmg_total
+        dead_std = standing & ~is_res_n & (hp_std <= 0) & (owner >= 0)
+        dead_neutral = standing & (owner < 0) & ~is_res_n & (hp_std <= 0)
+        keep = standing & ~dead_std & ~dead_neutral & ~node_removed
+
+        utype_n = torch.where(keep, s.utype.to(I32), 0)
+        owner_n = torch.where(keep, owner, -1)
+        hp_n = torch.where(keep, hp_std, 0)
+        uid_n = torch.where(keep, s.uid, 0)
+        carried_keep = torch.where(got, amt_got,
+                                   torch.where(ret_valid, 0, carried))
+        carried_keep = torch.where(is_res_n, node_res, carried_keep)
+        carried_n = torch.where(keep, carried_keep, 0)
+
+        busy_n = s.busy & ~comp & keep
+        atype_n = torch.where(busy_n, s.atype.to(I32), 0)
+        aparam_n = torch.where(busy_n, aparam, 0)
+        atx_n = torch.where(busy_n, s.atx.to(I32), 0)
+        aty_n = torch.where(busy_n, s.aty.to(I32), 0)
+        aptype_n = torch.where(busy_n, s.aptype.to(I32), 0)
+        aticks_n = torch.where(busy_n, ticks, 0)
+        aorder_n = torch.where(busy_n, aorder, 0)
+        atime_n = torch.where(busy_n, s.atime, -1)
+
+        for d in range(4):      # arrivals: movers
+            at_dst = push(mv_alive & (aparam == d), d, False)
+            hp_arr = push(hp_mid, d) - dmg_post_arr
+            alive_dst = at_dst & (hp_arr > 0)
+            utype_n = torch.where(alive_dst, push(s.utype.to(I32), d), utype_n)
+            owner_n = torch.where(alive_dst, push(owner, d), owner_n)
+            hp_n = torch.where(alive_dst, hp_arr, hp_n)
+            carried_n = torch.where(alive_dst, push(carried, d), carried_n)
+            uid_n = torch.where(alive_dst, push(s.uid, d), uid_n)
+
+        hp_born_src = tp("hp", s.aptype.long().clamp(0, T - 1))
+        for d in range(4):      # arrivals: newborns
+            at_dst = push(cp & (aparam == d), d, False)
+            hp_nb = push(hp_born_src, d) - dmg_post_arr
+            alive_dst = at_dst & (hp_nb > 0)
+            utype_n = torch.where(alive_dst, push(s.aptype.to(I32), d) + 1,
+                                  utype_n)
+            owner_n = torch.where(alive_dst, push(owner, d), owner_n)
+            hp_n = torch.where(alive_dst, hp_nb, hp_n)
+            carried_n = torch.where(alive_dst, 0, carried_n)
+            uid_n = torch.where(alive_dst,
+                                s.next_id[:, None, None] + push(nb_rank, d),
+                                uid_n)
+
+        resources_n = s.resources + torch.stack(
+            [dep[0] - spend[0], dep[1] - spend[1]], -1)
+        new = s.replace(
+            utype=utype_n, owner=owner_n, hp=hp_n, carried=carried_n,
+            uid=uid_n, busy=busy_n, atype=atype_n, aparam=aparam_n,
+            atx=atx_n, aty=aty_n, aptype=aptype_n, aticks=aticks_n,
+            aorder=aorder_n, atime=atime_n, time=s.time + 1,
+            resources=resources_n, next_id=s.next_id + n_born).canon()
+        return new, self.gameover(new)
+
+    # ------------------------------------------------------------------
+    def _counts(self, state: State):
+        alive = state.utype > 0
+        return (sum2(alive & (state.owner == 0)),
+                sum2(alive & (state.owner == 1)))
+
+    def gameover(self, state: State) -> torch.Tensor:
+        """PhysicalGameState.gameover :361-387, bool [B]."""
+        n0, n1 = self._counts(state)
+        return ((n0 + n1) == 0) | ((n0 == 0) ^ (n1 == 0))
+
+    def winner(self, state: State) -> torch.Tensor:
+        """PhysicalGameState.winner :334-353, int32 [B] (-1 none/draw)."""
+        n0, n1 = self._counts(state)
+        return torch.where((n0 > 0) & (n1 == 0), 0,
+                           torch.where((n1 > 0) & (n0 == 0), 1, -1)).to(I32)
+
+
+def make_engine(cfg: EngineConfig, plain: bool = False) -> Engine:
+    return Engine(cfg, plain)

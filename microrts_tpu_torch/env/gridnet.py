@@ -1,0 +1,357 @@
+"""Gridnet RL environment on batched planes.
+
+A port of ``microrts_tpu.env.gridnet`` (see its docstring for the Java
+sources each function mirrors).  Every method takes and returns batched
+tensors: states are ``[B, H, W]`` planes and gridnet actions are int32
+``[B, H, W, 7]``.  ``decode`` and ``masks`` dispatch by device like the
+engine: CPU tensors take the plain version, CUDA tensors launch the
+``decode`` and ``actor`` kernels.
+
+Not ported yet: partial observability, ``step_vs`` and the
+``closertoenemy*`` rewards (they raise).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from .. import kernels as KN
+from ..engine.kernel import iota, make_engine
+from ..engine.pgs import PhysicalGameState
+from ..engine.types import (ATTACK, HARVEST, INF, MOVE, NONE, PRODUCE, RETURN,
+                            Candidates, EngineConfig, State, resolve_device,
+                            state_from_pgs)
+from ..engine.utt import UnitTypeTable
+
+I32 = torch.int32
+
+REWARD_NAMES = (
+    "winloss", "resourcegather", "produceworker", "producebuilding",
+    "producecombat", "attack", "closertoenemybase", "closertoenemyunit",
+)
+PORTED_REWARDS = REWARD_NAMES[:6]
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvConfig:
+    engine: EngineConfig
+    max_produce_scan: int = 16
+    reward_fns: Tuple[str, ...] = PORTED_REWARDS
+    # type-name ids for name-based rewards (-1 = absent in this UTT)
+    worker_id: int = -1
+    base_id: int = -1
+    barracks_id: int = -1
+    light_id: int = -1
+    heavy_id: int = -1
+    ranged_id: int = -1
+
+
+class GridnetEnv:
+    """Single-map gridnet env over a batch of states on ``device``.
+
+    ``device`` defaults to CUDA, and a missing card raises; pass
+    ``device="cpu"`` for the plain path.  ``plain=True`` runs the plain
+    PyTorch versions of the kernels on any device (their oracle)."""
+
+    def __init__(self, map_path: str, utt: Optional[UnitTypeTable] = None,
+                 reward_fns: Sequence[str] = PORTED_REWARDS,
+                 max_produce_scan: int = 16, partial_obs: bool = False,
+                 frame_skip: int = 1, device="cuda", plain: bool = False):
+        if partial_obs:
+            raise NotImplementedError("partial_obs is not ported yet")
+        for name in reward_fns:
+            if name not in PORTED_REWARDS:
+                raise NotImplementedError(f"reward {name!r} is not ported yet")
+        self.device = resolve_device(device)
+        self.frame_skip = frame_skip
+        self.utt = utt if utt is not None else UnitTypeTable(2)
+        self.pgs0 = PhysicalGameState.load(map_path, self.utt)
+        self.h, self.w = self.pgs0.height, self.pgs0.width
+        ecfg = EngineConfig.from_utt(self.utt, self.h, self.w)
+        self.engine = make_engine(ecfg, plain)
+
+        def tid(name):
+            ut = self.utt.get_unit_type(name)
+            return ut.ID if ut is not None else -1
+
+        self.cfg = EnvConfig(
+            engine=ecfg, max_produce_scan=max_produce_scan,
+            reward_fns=tuple(reward_fns),
+            worker_id=tid("Worker"), base_id=tid("Base"),
+            barracks_id=tid("Barracks"), light_id=tid("Light"),
+            heavy_id=tid("Heavy"), ranged_id=tid("Ranged"))
+        self.init_state = state_from_pgs(self.pgs0, ecfg, 1, self.device)
+
+    @property
+    def num_rewards(self) -> int:
+        return len(self.cfg.reward_fns)
+
+    def action_nvec(self):
+        d = 2 * self.cfg.engine.max_range + 1
+        return [6, 4, 4, 4, 4, self.cfg.engine.num_types, d * d]
+
+    def reset(self, num_envs: int) -> State:
+        return State(**{f: v.expand((num_envs,) + tuple(v.shape[1:])).clone()
+                        for f, v in vars(self.init_state).items()})
+
+    # ------------------------------------------------------------------
+    def decode(self, state: State, actions: torch.Tensor, player: int
+               ) -> Candidates:
+        """PlayerAction.fromVectorAction + fillWithNones(gs, player, 1)
+        for one player, against the in-flight claims and produce costs
+        of ``state`` (gridnet.py:139-343)."""
+        if self.engine._use_kernel(actions):
+            return KN.DECODE(self.cfg, state, actions, player)
+        return self.decode_plain(state, actions, player)
+
+    def decode_plain(self, state: State, actions: torch.Tensor,
+                     player: int) -> Candidates:
+        cfg = self.cfg.engine
+        H, W, T = self.h, self.w, cfg.num_types
+        R = cfg.max_range
+        D = 2 * R + 1
+        HW, L = H * W, H * W + 2 * W
+        B = actions.shape[0]
+        dev = actions.device
+        cost = self.engine.lut("cost", dev)
+        me = int(player)
+        claimed0 = self._inflight_claims(state)
+        spent0 = self._inflight_spent(state, me)
+
+        present = (state.utype > 0) & (state.owner == me) & ~state.busy
+        a = actions.to(I32)
+        at = a[..., 0]
+        aparam = torch.where(at == NONE, -1, 0).to(I32)
+        for code, comp in ((MOVE, 1), (HARVEST, 2), (RETURN, 3), (PRODUCE, 4)):
+            aparam = torch.where(at == code, a[..., comp], aparam)
+        aptype = a[..., 5].clamp(0, T - 1)
+        xs, ys = iota(H, W, dev)
+        rel = a[..., 6]
+        atx = torch.where(at == ATTACK, xs + torch.remainder(rel, D) - R, 0)
+        aty = torch.where(at == ATTACK,
+                          ys + torch.div(rel, D, rounding_mode="floor") - R, 0)
+        rank = (ys * W + xs).expand(B, H, W)
+        cand_ok = present & (at >= 0) & (at < 6)
+
+        # claims live in Java's FLAT position space, slot = W + pos + OFF
+        is_claim = cand_ok & ((at == MOVE) | (at == PRODUCE))
+        dparam = aparam.clamp(0, 3)
+        off = torch.tensor((-W, 1, W, -1), dtype=I32, device=dev)
+        slot = (W + rank + off[dparam.long()]).reshape(B, HW).long()
+        rank_f = rank.reshape(B, HW)
+        blocked0 = torch.gather(claimed0, 1, slot).reshape(B, H, W)
+        is_claim = is_claim & ~blocked0
+        is_move = is_claim & (at == MOVE)
+        is_prod = is_claim & (at == PRODUCE)
+
+        def slot_min(mask):
+            buf = torch.full((B, L), INF, dtype=I32, device=dev)
+            vals = torch.where(mask.reshape(B, HW), rank_f, INF)
+            return buf.scatter_reduce(1, slot, vals, "amin")
+
+        mrank = slot_min(is_move)
+        mrank_own = torch.gather(mrank, 1, slot)
+        pos_ok = is_prod.reshape(B, HW) & (rank_f < mrank_own)
+
+        # produce budget over the first Kp pos-ok candidates in rank
+        # (row-major) order, with the zero-skip and same-slot block
+        Kp = self.cfg.max_produce_scan
+        order = torch.cumsum(pos_ok.to(I32), 1) - 1
+        in_scan = pos_ok & (order < Kp)
+        idx = torch.where(in_scan, order, Kp).long()
+        pcost = cost[aptype.long()].reshape(B, HW)
+        c_k = torch.zeros((B, Kp + 1), dtype=I32, device=dev).scatter(
+            1, idx, pcost)[:, :Kp]
+        x_k = torch.full((B, Kp + 1), -1, dtype=torch.long,
+                         device=dev).scatter(1, idx, slot)[:, :Kp]
+        valid = torch.arange(Kp, device=dev)[None, :] < pos_ok.sum(1)[:, None]
+        balance = state.resources[:, 1 if me == 1 else 0]
+        spent = spent0
+        kept = torch.zeros((B, Kp), dtype=torch.bool, device=dev)
+        for i in range(Kp):
+            blocked = (kept[:, :i] & (x_k[:, :i] == x_k[:, i:i + 1])).any(1)
+            res_ok = (spent == 0) | (spent + c_k[:, i] <= balance)
+            keep_i = valid[:, i] & ~blocked & res_ok
+            spent = spent + torch.where(keep_i, c_k[:, i], 0)
+            kept[:, i] = keep_i
+        kept_pad = torch.cat([kept, kept.new_zeros((B, 1))], 1)
+        prod_kept = (in_scan & torch.gather(kept_pad, 1, idx)).reshape(B, H, W)
+
+        prank_own = torch.gather(slot_min(prod_kept), 1, slot)
+        move_kept = is_move & ((rank_f == mrank_own)
+                               & (rank_f < prank_own)).reshape(B, H, W)
+        keep = ((cand_ok & (at != MOVE) & (at != PRODUCE))
+                | move_kept | prod_kept)
+        pad = present & ~keep
+        return Candidates(
+            atype=torch.where(keep, at, torch.where(pad, NONE, -1)).to(I32),
+            aparam=torch.where(keep, aparam,
+                               torch.where(pad, 1, 0)).to(I32),
+            atx=atx.to(I32), aty=aty.to(I32), aptype=aptype.to(I32),
+            rank=torch.where(keep, rank,
+                             torch.where(pad, HW + rank, INF)).to(I32))
+
+    def _inflight_claims(self, state: State) -> torch.Tensor:
+        """Flat padded claim buffer bool ``[B, H*W + 2*W]`` of in-flight
+        MOVE/PRODUCE targets (Java base_ru positions, row wrap kept)."""
+        H, W = self.h, self.w
+        B = state.batch
+        inflight = state.busy & ((state.atype == MOVE)
+                                 | (state.atype == PRODUCE))
+        buf = torch.zeros((B, H * W + 2 * W), dtype=torch.bool,
+                          device=state.device)
+        for d, off in enumerate((-W, 1, W, -1)):
+            s = W + off
+            seg = (inflight & (state.aparam == d)).reshape(B, -1)
+            buf[:, s:s + H * W] |= seg
+        return buf
+
+    def _inflight_spent(self, state: State, player: int) -> torch.Tensor:
+        """int32 [B]: ``player``'s in-flight produce costs."""
+        cost = self.engine.lut("cost", state.device)
+        pt = state.aptype.long().clamp(0, self.cfg.engine.num_types - 1)
+        pc = torch.where(state.busy & (state.atype == PRODUCE)
+                         & (state.owner == player), cost[pt], 0)
+        return pc.sum((1, 2), dtype=I32)
+
+    # ------------------------------------------------------------------
+    def step(self, state: State, a0: torch.Tensor, a1: torch.Tensor):
+        """Self-play step (JNIGridnetClientSelfPlay.gameStep :159-190):
+        decode p0 -> issue -> decode p1 against the post-issue state ->
+        issue -> cycle (``frame_skip`` times) -> rewards.  Returns
+        (state', rewards float32 [B, 2, NR], done bool [B])."""
+        eng = self.engine
+        pre = state
+        c0 = self.decode(state, a0, 0)
+        state1 = eng.issue_env(state, c0)
+        c1 = self.decode(state1, a1, 1)
+        state2 = eng.issue_env(state1, c1)
+        state2, done = eng.cycle(state2)
+        for _ in range(self.frame_skip - 1):
+            state2, d2 = eng.cycle(state2)
+            done = done | d2
+        r0 = self._rewards(pre, c0, 0, state2)
+        r1 = self._rewards(pre, c1, 1, state2)
+        return state2, torch.stack([r0, r1], 1), done
+
+    # ------------------------------------------------------------------
+    def observation(self, state: State, player: int) -> torch.Tensor:
+        """GameState.getVectorObservation: int32 [B, 6, H, W] planes hp,
+        carried, owner-relative, type+1, current action type, walls."""
+        exists = state.utype > 0
+        owner = state.owner.to(I32)
+        ownerp = torch.where(exists & (owner >= 0),
+                             torch.remainder(owner + player, 2) + 1, 0)
+        actp = torch.where(exists & state.busy, state.atype.to(I32), 0)
+        return torch.stack([
+            torch.where(exists, state.hp.to(I32), 0),
+            torch.where(exists, state.carried.to(I32), 0),
+            ownerp,
+            torch.where(exists, state.utype.to(I32), 0),
+            actp,
+            state.terrain.to(I32),
+        ], 1).to(I32)
+
+    def observation_onehot(self, state: State, player: int) -> torch.Tensor:
+        """Binarized observation float32 [B, H, W, 5+5+3+(T+1)+6]."""
+        T = self.cfg.engine.num_types
+        obs = self.observation(state, player).long()
+        oh = torch.nn.functional.one_hot
+        return torch.cat([
+            oh(obs[:, 0].clamp(0, 4), 5), oh(obs[:, 1].clamp(0, 4), 5),
+            oh(obs[:, 2], 3), oh(obs[:, 3], T + 1), oh(obs[:, 4], 6),
+        ], -1).to(torch.float32)
+
+    def masks(self, state: State, player: int) -> torch.Tensor:
+        """int32 [B, H, W, 1+6+4+4+4+4+T+(2R+1)^2] (JNIGridnetClient
+        :60-99)."""
+        if self.engine._use_kernel(state.utype):
+            return KN.ACTOR(self.cfg.engine, state, player, masks=True)[1]
+        return self.masks_plain(state, player)
+
+    def masks_plain(self, state: State, player: int) -> torch.Tensor:
+        m = self.engine.legal_masks(state, player)
+        return torch.cat(
+            [m["can_act"][..., None], m["type"], m["move"], m["harvest"],
+             m["ret"], m["produce_dir"], m["produce_type"], m["attack"]],
+            -1).to(I32)
+
+    # ------------------------------------------------------------------
+    def dones(self, state: State) -> torch.Tensor:
+        """Per-reward-function done flags bool [B, NR]: winloss ->
+        gameover; resourcegather -> no resource left; others False."""
+        out = []
+        for name in self.cfg.reward_fns:
+            if name == "winloss":
+                out.append(self.engine.gameover(state))
+            elif name == "resourcegather":
+                t = (state.utype.long() - 1).clamp(
+                    0, self.cfg.engine.num_types - 1)
+                node = (state.utype > 0) & self.engine.lut(
+                    "is_resource", state.device)[t]
+                out.append(~(node & (state.carried > 0)).any((1, 2)))
+            else:
+                out.append(torch.zeros(state.batch, dtype=torch.bool,
+                                       device=state.device))
+        return torch.stack(out, 1)
+
+    # ------------------------------------------------------------------
+    # rewards (ai/reward/*, from the decoded actions + pre/post states)
+
+    def _rewards(self, pre: State, cand: Candidates, player: int,
+                 after: State) -> torch.Tensor:
+        """float32 [B, NR]."""
+        acted = (cand.atype >= 0) & (pre.owner == player) & (pre.utype > 0)
+        return torch.stack([self._reward_one(n, pre, cand, acted, player,
+                                             after)
+                            for n in self.cfg.reward_fns], 1)
+
+    def _reward_one(self, name, pre, cand, acted, me, after):
+        cfg = self.cfg
+        f32 = torch.float32
+
+        def count(m):
+            return m.sum((1, 2), dtype=I32).to(f32)
+
+        if name == "winloss":
+            over = self.engine.gameover(after)
+            won = self.engine.winner(after) == me
+            return torch.where(over, torch.where(won, 1.0, -1.0),
+                               0.0).to(f32)
+        if name == "resourcegather":
+            return count(acted & ((cand.atype == HARVEST)
+                                  | (cand.atype == RETURN)))
+        prod = acted & (cand.atype == PRODUCE)
+        if name == "produceworker":
+            return count(prod & (cand.aptype == cfg.worker_id))
+        if name == "producebuilding":
+            return count(prod & ((cand.aptype == cfg.base_id)
+                                 | (cand.aptype == cfg.barracks_id)))
+        if name == "producecombat":
+            return count(prod & ((cand.aptype == cfg.light_id)
+                                 | (cand.aptype == cfg.heavy_id)
+                                 | (cand.aptype == cfg.ranged_id)))
+        if name == "attack":
+            # +1 per attack aimed at an enemy-occupied cell, -1 at an
+            # own-occupied cell (pre-step board), targets within the range
+            # disc (the JAX version scans the disc's offsets; here each
+            # target is gathered once)
+            R = cfg.engine.max_range
+            H, W = self.h, self.w
+            xs, ys = iota(H, W, cand.atx.device)
+            dx, dy = cand.atx - xs, cand.aty - ys
+            ok = (acted & (cand.atype == ATTACK) & (dx * dx + dy * dy <= R * R)
+                  & (cand.atx >= 0) & (cand.atx < W)
+                  & (cand.aty >= 0) & (cand.aty < H))
+            idx = torch.where(ok, cand.aty * W + cand.atx, 0).reshape(
+                pre.batch, -1).long()
+            occ = torch.gather((pre.utype > 0).reshape(pre.batch, -1), 1, idx)
+            own = torch.gather(pre.owner.reshape(pre.batch, -1), 1, idx)
+            ok, occ, own = (t.reshape(ok.shape) for t in (ok, occ, own))
+            pos = (ok & occ & (own == 1 - me)).sum((1, 2), dtype=I32)
+            neg = (ok & occ & (own == me)).sum((1, 2), dtype=I32)
+            return (pos - neg).to(f32)
+        raise ValueError(f"unknown reward fn {name!r}")

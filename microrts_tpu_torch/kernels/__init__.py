@@ -1,0 +1,326 @@
+"""The port's hand-written CUDA kernels: build, binding and launchers.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface under ``microrts_tpu_torch/build/``
+at first use (all sources at once, one ``nvcc`` each), and loaded with
+``ctypes``.  Nothing is built or loaded when this module is imported.
+
+The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``) take CUDA
+tensors only: they check device, dtype, shape and contiguity, allocate the
+outputs, launch on PyTorch's current stream, raise if the launch reports a
+CUDA error, and count their launches in ``.launches``.  The callers in
+``engine``, ``env`` and ``bots`` send CPU tensors to the plain PyTorch
+versions instead; nothing falls back from a failed build or launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..engine.types import FIELD_DTYPES, Candidates, EngineConfig, State
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent.parent / "build"
+NAMES = ("actor", "decode", "issue_env", "cycle")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAXT = 16
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}   # name -> nvcc's -Xptxas -v report
+
+
+def nvcc_path() -> str:
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(str(Path(root) / "bin" / "nvcc"))
+    for c in cands:
+        if c and Path(c).exists():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for part in ((CSRC / f"{name}.cu").read_bytes(),
+                 (CSRC / "common.cuh").read_bytes(),
+                 " ".join(NVCC_FLAGS).encode()):
+        h.update(part)
+    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build() -> float:
+    """Compile every kernel source not built yet, one ``nvcc`` per source,
+    all started together, and load the libraries.  Returns the seconds
+    spent; fills ``BUILD_LOG`` with each compiler report."""
+    t0 = time.perf_counter()
+    todo = [n for n in NAMES if n not in _LIBS]
+    if not todo:
+        return 0.0
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        out = _lib_path(name)
+        if out.exists():
+            log = out.with_suffix(".log")
+            BUILD_LOG[name] = log.read_text() if log.exists() else ""
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for name in todo:
+        _LIBS[name] = _bind(name, ctypes.CDLL(str(_lib_path(name))))
+    return time.perf_counter() - t0
+
+
+# ----------------------------------------------------------------------
+# C structs (csrc/common.cuh)
+
+class _Cfg(ctypes.Structure):
+    _fields_ = [("H", ctypes.c_int), ("W", ctypes.c_int), ("T", ctypes.c_int),
+                ("R", ctypes.c_int)] + [
+        (f, ctypes.c_int * MAXT) for f in (
+            "cost", "hp", "min_damage", "attack_range", "produce_time",
+            "move_time", "attack_time", "harvest_time", "harvest_amount",
+            "is_resource", "is_stockpile", "can_harvest", "can_move",
+            "can_attack", "produces")]
+
+
+class _StateP(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in FIELD_DTYPES]
+
+
+class _CandP(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in Candidates.FIELDS]
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    cfg, st, cd = (ctypes.POINTER(_Cfg), ctypes.POINTER(_StateP),
+                   ctypes.POINTER(_CandP))
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = _I
+    fn.argtypes = {
+        "actor": [cfg, st, _I, _I, _P, ctypes.POINTER(ctypes.c_float), _P,
+                  _P, _P],
+        "decode": [cfg, st, _I, _I, _P, _I, cd, _P],
+        "issue_env": [cfg, st, _I, cd, st, _P],
+        "cycle": [cfg, st, _I, st, _P, _P],
+    }[name]
+    return lib
+
+
+_CFGS: Dict[EngineConfig, _Cfg] = {}
+
+
+def _cfg(cfg: EngineConfig) -> _Cfg:
+    if cfg not in _CFGS:
+        T, R = cfg.num_types, cfg.max_range
+        if T > MAXT:
+            raise ValueError(f"kernels take at most {MAXT} unit types, got {T}")
+        if (2 * R + 1) ** 2 > 64:
+            raise ValueError(f"kernels take attack ranges up to 3, got {R}")
+        c = _Cfg(H=cfg.height, W=cfg.width, T=T, R=R)
+        for f in ("cost", "hp", "min_damage", "attack_range", "produce_time",
+                  "move_time", "attack_time", "harvest_time",
+                  "harvest_amount", "is_resource", "is_stockpile",
+                  "can_harvest", "can_move", "can_attack"):
+            getattr(c, f)[:T] = [int(v) for v in getattr(cfg, f)]
+        c.produces[:T] = [sum(1 << j for j, v in enumerate(row) if v)
+                          for row in cfg.produces]
+        _CFGS[cfg] = c
+    return _CFGS[cfg]
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> int:
+    if t.device != device or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor is not contiguous")
+    return t.data_ptr()
+
+
+def _state_p(state: State, cfg: EngineConfig) -> Tuple[_StateP, int]:
+    B = state.utype.shape[0]
+    dev = state.utype.device
+    plane = (B, cfg.height, cfg.width)
+    shapes = dict(resources=(B, 2), time=(B,), next_id=(B,),
+                  order_ctr=(B,), cancel_ctr=(B,))
+    ptrs = {f: _check(f, getattr(state, f), dt, shapes.get(f, plane), dev)
+            for f, dt in FIELD_DTYPES.items()}
+    return _StateP(**ptrs), B
+
+
+def _cand_p(cand: Candidates, shape, device) -> _CandP:
+    return _CandP(**{f: _check(f, getattr(cand, f), torch.int32, shape, device)
+                     for f in Candidates.FIELDS})
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+class Kernel:
+    """One kernel's library entry and launch counter."""
+
+    def __init__(self, name: str, replaces: str):
+        self.name = name
+        self.replaces = replaces
+        self.source = f"microrts_tpu_torch/kernels/csrc/{name}.cu"
+        self.launches = 0
+
+    def _launch(self, *args) -> None:
+        build()
+        rc = getattr(_LIBS[self.name], f"{self.name}_launch")(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel: CUDA error {rc} at launch")
+        self.launches += 1
+
+
+class _Actor(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State, player: int,
+                 u: Optional[torch.Tensor] = None, weights=None,
+                 masks: bool = False):
+        """Legal masks + RandomBiasedAI sampling.  With ``u`` (float32
+        ``[B, H, W, 2]``) and ``weights`` (6 class weights) returns the
+        int32 ``[B, H, W, 7]`` actions; with ``masks=True`` also the packed
+        int32 ``[B, H, W, 23+T+(2R+1)^2]`` mask.  Returns (actions or
+        None, mask or None)."""
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W = cfg.height, cfg.width
+        act = mask = None
+        w = (ctypes.c_float * 6)(*([0.0] * 6))
+        if u is not None:
+            _check("u", u, torch.float32, (B, H, W, 2), dev)
+            if weights is None or len(weights) != 6:
+                raise ValueError("actor: sampling needs 6 class weights")
+            w = (ctypes.c_float * 6)(*[float(v) for v in weights])
+            act = torch.empty((B, H, W, 7), dtype=torch.int32, device=dev)
+        if masks:
+            d = 2 * cfg.max_range + 1
+            mask = torch.empty((B, H, W, 23 + cfg.num_types + d * d),
+                               dtype=torch.int32, device=dev)
+        if act is None and mask is None:
+            raise ValueError("actor: nothing to compute")
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
+                         int(player), u.data_ptr() if u is not None else None,
+                         w, act.data_ptr() if act is not None else None,
+                         mask.data_ptr() if mask is not None else None,
+                         _stream(dev))
+        return act, mask
+
+
+class _Decode(Kernel):
+    def __call__(self, env_cfg, state: State, actions: torch.Tensor,
+                 player: int) -> Candidates:
+        """Gridnet actions int32 ``[B, H, W, 7]`` of ``player`` ->
+        Candidates (six new int32 planes)."""
+        cfg = env_cfg.engine
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W = cfg.height, cfg.width
+        _check("actions", actions, torch.int32, (B, H, W, 7), dev)
+        out = Candidates(*[torch.empty((B, H, W), dtype=torch.int32,
+                                       device=dev)
+                           for _ in Candidates.FIELDS])
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
+                         int(player), actions.data_ptr(),
+                         int(env_cfg.max_produce_scan),
+                         ctypes.byref(_cand_p(out, (B, H, W), dev)),
+                         _stream(dev))
+        return out
+
+
+_ISSUE_OUT = ("busy", "atype", "aparam", "atx", "aty", "aptype", "aticks",
+              "aorder", "atime", "order_ctr")
+_CYCLE_OUT = ("utype", "owner", "hp", "carried", "uid", "busy", "atype",
+              "aparam", "atx", "aty", "aptype", "aticks", "aorder", "atime",
+              "time", "resources", "next_id")
+
+
+def _fresh(state: State, fields) -> State:
+    """A State whose ``fields`` are new empty tensors and whose other
+    fields are the input's own tensors (shared, not copied)."""
+    return state.replace(**{f: torch.empty_like(getattr(state, f))
+                            for f in fields})
+
+
+class _IssueEnv(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State,
+                 cand: Candidates) -> State:
+        """issueSafe fast path.  Returns a new State: new busy, assignment
+        planes and order_ctr; the other fields are the input's tensors."""
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        cp = _cand_p(cand, (B, cfg.height, cfg.width), dev)
+        out = _fresh(state, _ISSUE_OUT)
+        op, _ = _state_p(out, cfg)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
+                         ctypes.byref(cp), ctypes.byref(op), _stream(dev))
+        return out
+
+
+class _Cycle(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State
+                 ) -> Tuple[State, torch.Tensor]:
+        """One tick.  Returns (new State, gameover bool [B]); terrain,
+        order_ctr and cancel_ctr are the input's tensors."""
+        if not cfg.det_damage:
+            raise NotImplementedError("cycle kernel: UTT v3 random damage")
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        out = _fresh(state, _CYCLE_OUT)
+        op, _ = _state_p(out, cfg)
+        done = torch.empty(B, dtype=torch.bool, device=dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
+                         ctypes.byref(op), done.data_ptr(), _stream(dev))
+        return out, done
+
+
+# ``replaces``: the JAX function each kernel stands for (file:line)
+ACTOR = _Actor("actor", "microrts_tpu/engine/kernel.py:742")  # + scripted.py:69
+DECODE = _Decode("decode", "microrts_tpu/env/gridnet.py:139")
+ISSUE_ENV = _IssueEnv("issue_env", "microrts_tpu/engine/kernel.py:456")
+CYCLE = _Cycle("cycle", "microrts_tpu/engine/kernel.py:508")
+KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE)
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

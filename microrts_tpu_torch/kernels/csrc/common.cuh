@@ -1,0 +1,83 @@
+// Shared layout of the port's engine kernels.
+//
+// Every kernel runs one thread block per env and walks that env's H*W
+// cells with a block-stride loop (one cell per thread when H*W <= 1024).
+// Planes are row-major [B, H, W] in the storage types of
+// microrts_tpu_torch/engine/types.py FIELD_DTYPES; arithmetic is int32 and
+// results are stored narrow, as State.canon() stores them.  The host side
+// (kernels/__init__.py) mirrors these structs with ctypes.
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define MAXT 16
+#define INF_I (1 << 30)
+
+enum { A_NONE = 0, A_MOVE = 1, A_HARVEST = 2, A_RETURN = 3, A_PRODUCE = 4,
+       A_ATTACK = 5 };
+
+// Direction offsets (UnitAction.java:68-100): up, right, down, left.
+__device__ __forceinline__ int dir_dx(int d) { return (d == 1) - (d == 3); }
+__device__ __forceinline__ int dir_dy(int d) { return (d == 2) - (d == 0); }
+
+// The unit type table, flattened (EngineConfig); passed by value.
+struct Cfg {
+  int H, W, T, R;
+  int cost[MAXT], hp[MAXT], min_damage[MAXT], attack_range[MAXT];
+  int produce_time[MAXT], move_time[MAXT], attack_time[MAXT];
+  int harvest_time[MAXT], harvest_amount[MAXT];
+  int is_resource[MAXT], is_stockpile[MAXT], can_harvest[MAXT];
+  int can_move[MAXT], can_attack[MAXT];
+  int produces[MAXT];  // bit j of produces[i]: type i can produce type j
+};
+
+// One batch of states.  Board/assignment planes are [B, H, W];
+// resources is [B, 2]; the other scalars are [B].
+struct StateP {
+  int8_t* terrain; int8_t* utype; int8_t* owner; int16_t* hp;
+  int16_t* carried; int32_t* uid; uint8_t* busy; int8_t* atype;
+  int16_t* aparam; int16_t* atx; int16_t* aty; int8_t* aptype;
+  int16_t* aticks; int32_t* aorder; int32_t* atime;
+  int32_t* time; int32_t* resources; int32_t* next_id; int32_t* order_ctr;
+  int32_t* cancel_ctr;
+};
+
+// Decoded candidates, int32 [B, H, W] planes.
+struct CandP {
+  int32_t* atype; int32_t* aparam; int32_t* atx; int32_t* aty;
+  int32_t* aptype; int32_t* rank;
+};
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// Type index of a utype value (utype - 1 clipped to [0, T-1]).
+__device__ __forceinline__ int tidx(const Cfg& cfg, int utype) {
+  return clampi(utype - 1, 0, cfg.T - 1);
+}
+
+// Bump-allocate an aligned slice of dynamic shared memory.
+template <typename T>
+__device__ __forceinline__ T* carve(unsigned char*& p, int n) {
+  uintptr_t a = (reinterpret_cast<uintptr_t>(p) + 15) & ~uintptr_t(15);
+  T* out = reinterpret_cast<T*>(a);
+  p = reinterpret_cast<unsigned char*>(a + sizeof(T) * n);
+  return out;
+}
+
+inline size_t carve_bytes(size_t bytes) { return (bytes + 15) & ~size_t(15); }
+
+inline int block_threads(int hw) {
+  int t = ((hw + 31) / 32) * 32;
+  return t > 1024 ? 1024 : t;
+}
+
+// Set the dynamic shared memory ceiling of `kernel` when above 48 KB.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
