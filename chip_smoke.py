@@ -4,23 +4,34 @@
     python3 chip_smoke.py
 
 Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
-envs, RandomBiasedAI (bias 5) for both players:
+envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the four CUDA kernels from ``microrts_tpu_torch/kernels/
-   csrc`` (``-Xptxas -v`` report printed);
-3. realistic states: runs the plain PyTorch path on the card until the
-   recorded kernel inputs hold busy units, kept produces and completing
-   attacks (at least 20), harvests and returns;
-4. kernel vs plain: every kernel output is ``torch.equal`` to its plain
-   version on those inputs (tolerance: exact); both are timed with CUDA
-   events;
-5. main path: ``VecGridnetEnv`` + ``random_bot`` through the kernels next to
-   the plain path, same start and uniforms, 256 ticks with auto-resets;
-   state, obs, rewards and dones must be equal at every tick, and the
-   launch counters must read actor 2, decode 2, issue_env 2, cycle 1 per
-   step; then a steady window gives env-steps/s;
-6. one JSON line of every kernel, the ``nvidia-smi`` line, and as the last
+2. build: compiles the seven CUDA kernels from ``microrts_tpu_torch/
+   kernels/csrc`` (one ``nvcc`` each, in parallel; ``-Xptxas -v`` report
+   printed);
+3. realistic states: runs the plain PyTorch path (RandomBiasedAI, bias 5,
+   both players) on the card until the recorded kernel inputs hold busy
+   units, kept produces and completing attacks (at least 20), harvests
+   and returns; one more record has terminal envs (a player's units
+   removed) for the winloss reward;
+4. kernel vs plain: every kernel output equals its plain version on those
+   inputs (tolerance: exact; the policy sampler's logprob and entropy
+   within 1e-5 relative + 1e-4 absolute, its actions exact, on logits of
+   the seeded bf16 ``GridnetPolicy`` at full width); each kernel and its
+   plain version are timed with CUDA events;
+5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
+   kernels next to the plain path, same start and uniforms, 256 ticks
+   with auto-resets; state, obs, rewards and dones equal at every tick;
+   launches per step actor 2, decode 2, issue_env 2, cycle 1, epilogue 1,
+   splice_obs 1; then a steady window gives env-steps/s;
+6. the rollout: ``PPOTrainer._rollout`` (bf16 ``GridnetPolicy`` at width
+   64 / 4 blocks, RandomBiasedAI opponent, cuDNN deterministic) through
+   the kernels next to the plain path, 16 steps from the same states with
+   the same noise; states, obs, masks, actions, values, rewards and dones
+   identical at every step; every one of the seven kernels launched;
+   then a timed rollout gives env-steps/s;
+7. one JSON line of every kernel, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the exit code is not 0.  Without a CUDA device it
@@ -43,7 +54,10 @@ MIN_ATTACKS = 20         # completing attacks wanted in the recorded inputs
 MAIN_TICKS = 256         # phase 5: compared ticks
 MAX_STEPS = 96           # phase 5: episode cap, so that resets happen
 TIME_TICKS = 200         # phase 5: timed window
+ROLL_STEPS = 16          # phase 6: compared rollout steps
+ROLL_TIME_STEPS = 32     # phase 6: timed rollout
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+LP_TOL = dict(rtol=1e-5, atol=1e-4)  # sampler logprob / entropy vs plain
 
 
 def smi_line() -> str:
@@ -55,18 +69,38 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n: int = 50, warm: int = 3) -> float:
+def cuda_ms(fn, n: int = 50, warm: int = 3):
+    """(device ms per call, host-paced ms per call) of ``fn``, between
+    CUDA events around ``n`` calls.  For the device time the calls are
+    queued behind a sleep of the card long enough for the host to enqueue
+    them all, so that the host's launch overhead does not starve the card;
+    the host-paced time is the same run without the sleep."""
     import torch
     for _ in range(warm):
         fn()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     a.record()
     for _ in range(n):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
+    paced = a.elapsed_time(b) / n
+    host_ms = (time.perf_counter() - t0) * 1e3
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10_000_000 / a.elapsed_time(b)
+    torch.cuda._sleep(int(cycles_per_ms * (1.5 * host_ms + 5.0)))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n, paced
 
 
 def max_abs(x, y) -> int:
@@ -91,6 +125,20 @@ def expect_equal(name, pairs):
     return err
 
 
+def expect_close(name, pairs):
+    """pairs: [(label, kernel tensor, plain tensor)] of float32 tensors,
+    held to LP_TOL; returns max |diff|."""
+    import torch
+    err = 0.0
+    for label, k, p in pairs:
+        try:
+            torch.testing.assert_close(k, p, **LP_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {label}: {e}") from None
+        err = max(err, float((k - p).abs().max()))
+    return err
+
+
 def state_pairs(k, p):
     from microrts_tpu_torch.engine.types import FIELD_DTYPES
     return [(f, getattr(k, f), getattr(p, f)) for f in FIELD_DTYPES]
@@ -106,15 +154,25 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from microrts_tpu_torch import kernels as KN
-    from microrts_tpu_torch.bots.scripted import random_bot, random_bot_plain
-    from microrts_tpu_torch.engine.types import (ATTACK, HARVEST, PRODUCE,
-                                                 RETURN, Candidates)
+    from microrts_tpu_torch.bots.scripted import (random_bot,
+                                                  random_bot_plain,
+                                                  random_opponent)
+    from microrts_tpu_torch.engine.types import (ATTACK, FIELD_DTYPES,
+                                                 HARVEST, PRODUCE, RETURN,
+                                                 Candidates)
     from microrts_tpu_torch.env.gridnet import GridnetEnv
     from microrts_tpu_torch.env.vec import VecGridnetEnv
+    from microrts_tpu_torch.models.gridnet_policy import (
+        ActionSpace, GridnetPolicy, greedy_action_plain, gumbel_noise,
+        sample_action_plain)
+    from microrts_tpu_torch.train.ppo import PPOConfig, PPOTrainer
     from microrts_tpu_torch.utils.assets import asset_path
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the same cuDNN algorithms on the kernel and the plain path: same logits
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -179,6 +237,8 @@ def main() -> int:
             for k in ev:
                 seen[k] += ev[k]
         s, _ = peng.cycle(s2)
+        if records and records[-1]["tick"] == tick:
+            records[-1]["post"] = s
         tick += 1
     torch.cuda.synchronize()
     print(f"[3] {tick} plain ticks in {time.perf_counter() - t0:.1f} s; "
@@ -188,9 +248,26 @@ def main() -> int:
     if missing:
         raise AssertionError(f"recorded inputs hold no {missing}")
     realistic = s
+    # terminal envs: player 0's units gone in every 4th env, player 1's in
+    # the next ones (the winloss reward and done, and resets)
+    r = dict(records[-1])
+    post = r["post"]
+    k = torch.arange(B, device=dev) % 4
+    gone = (((post.owner == 0) & (k == 0)[:, None, None])
+            | ((post.owner == 1) & (k == 1)[:, None, None]))
+    r["post"] = post.replace(utype=torch.where(gone, 0, post.utype),
+                             owner=torch.where(gone, -1, post.owner))
+    r["tick"] = f"{r['tick']} (terminal)"
+    records.append(r)
+
+    # the policy: seeded, full width, bf16 activations
+    space = ActionSpace(cfg.num_types, 2 * cfg.max_range + 1)
+    net = GridnetPolicy(space, 20 + cfg.num_types).init_params(
+        torch.Generator().manual_seed(0)).to(dev)
 
     # ---- [4] every kernel against its plain version, on every record
     errs = {n: 0 for n in KN.NAMES}
+    terminal = 0
     for r in records:
         for p, st, u, a in ((0, r["s"], r["u0"], r["a0"]),
                             (1, r["s"], r["u1"], r["a1"])):
@@ -212,7 +289,47 @@ def main() -> int:
         ps, pd = peng.cycle_plain(r["s2"])
         errs["cycle"] = max(errs["cycle"], expect_equal(
             "cycle", state_pairs(ks, ps) + [("done", kd, pd)]))
+
+        pre, post, c0, c1 = r["s"], r["post"], r["c0"], r["c1"]
+        steps = torch.randint(0, MAX_STEPS, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        r["steps"] = steps
+        rew, dn, rm, nst = KN.EPILOGUE(kenv.cfg, post, pre, c0, c1, steps,
+                                       MAX_STEPS, done_copies=2)
+        pdn = penv.dones_plain(post)
+        prm = pdn[:, 0] | (steps + 1 >= MAX_STEPS)
+        prew = penv.rewards_plain(pre, c0, c1, post)
+        errs["epilogue"] = max(errs["epilogue"], expect_equal("epilogue", [
+            ("rewards", rew, prew), ("dones", dn, torch.stack([pdn, pdn])),
+            ("reset", rm, prm),
+            ("steps", nst, torch.where(prm, 0, steps + 1).int()),
+            ("dones alone", KN.EPILOGUE(kenv.cfg, post)[1], pdn)]))
+        terminal += int(pdn[:, 0].sum())
+        sp, obs, oh = KN.SPLICE_OBS(cfg, post, rm, kenv.init_state,
+                                    obs=(0, 1), onehot=(0,))
+        psp = post.select(prm, penv.init_state)
+        errs["splice_obs"] = max(errs["splice_obs"], expect_equal(
+            "splice_obs", state_pairs(sp, psp) + [
+                ("obs", obs, torch.stack([penv.observation_plain(psp, p)
+                                          for p in (0, 1)])),
+                ("onehot", oh[0], penv.observation_onehot_plain(psp, 0))]))
+        with torch.no_grad():
+            logits, _ = net(penv.observation_onehot_plain(pre, 0))
+        mask = penv.masks_plain(pre, 0)
+        gum = gumbel_noise(logits.shape, gen, dev)
+        ka, klp, kent, kenv_lp = KN.SAMPLE(space.sizes, logits, mask, gum)
+        pa, plp, pent, penv_lp = sample_action_plain(logits, mask, space, gum)
+        expect_equal("policy_sample", [("actions", ka, pa)])
+        expect_equal("policy_sample", [
+            ("greedy", KN.SAMPLE(space.sizes, logits, mask)[0],
+             greedy_action_plain(logits, mask, space))])
+        errs["policy_sample"] = max(errs["policy_sample"], expect_close(
+            "policy_sample", [("logprob", klp, plp), ("entropy", kent, pent),
+                              ("env logprob", kenv_lp, penv_lp)]))
+        r.update(logits=logits, mask=mask, gum=gum, reset=rm)
     torch.cuda.synchronize()
+    if terminal == 0:
+        raise AssertionError("no terminal env in the recorded inputs")
     print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
           f"(max |diff| {errs})", flush=True)
 
@@ -250,15 +367,55 @@ def main() -> int:
                       "aorder", "atime", "time", "resources", "next_id")])
                   + B),
     }
+    # epilogue: pre utype/owner, both players' atype/atx/aty/aptype, post
+    # utype/owner/carried, steps in; rewards, 2 dones copies, reset, steps
+    # out
+    rm = r["reset"]
+    epi_out = KN.EPILOGUE(kenv.cfg, r["post"], st, r["c0"], r["c1"],
+                          r["steps"], MAX_STEPS, done_copies=2)
+    timing["epilogue"] = (
+        lambda: KN.EPILOGUE(kenv.cfg, r["post"], st, r["c0"], r["c1"],
+                            r["steps"], MAX_STEPS, done_copies=2),
+        lambda: (penv.rewards_plain(st, r["c0"], r["c1"], r["post"]),
+                 penv.dones_plain(r["post"])),
+        nbytes(st.utype, st.owner, r["post"].utype, r["post"].owner,
+               r["post"].carried, r["steps"], *epi_out,
+               *[getattr(c, f) for c in (r["c0"], r["c1"])
+                 for f in ("atype", "atx", "aty", "aptype")]))
+    # splice_obs: the post planes of the envs that keep playing and the
+    # initial state in; the spliced state, both observations and player
+    # 0's one-hot out
+    sp, obs, oh = KN.SPLICE_OBS(cfg, r["post"], rm, kenv.init_state,
+                                obs=(0, 1), onehot=(0,))
+    keep = 1.0 - float(rm.float().mean())
+    post_b = nbytes(*[getattr(r["post"], f) for f in FIELD_DTYPES])
+    timing["splice_obs"] = (
+        lambda: KN.SPLICE_OBS(cfg, r["post"], rm, kenv.init_state,
+                              obs=(0, 1), onehot=(0,)),
+        lambda: (lambda q: (torch.stack([penv.observation_plain(q, p)
+                                         for p in (0, 1)]),
+                            penv.observation_onehot_plain(q, 0)))(
+            r["post"].select(rm, penv.init_state)),
+        int(keep * post_b) + nbytes(rm, *[getattr(kenv.init_state, f)
+                                          for f in FIELD_DTYPES])
+        + post_b + nbytes(obs, oh))
+    # policy_sample: logits, mask, gumbels in; actions, logprob, entropy,
+    # per-env logprob out
+    timing["policy_sample"] = (
+        lambda: KN.SAMPLE(space.sizes, r["logits"], r["mask"], r["gum"]),
+        lambda: sample_action_plain(r["logits"], r["mask"], space, r["gum"]),
+        nbytes(r["logits"], r["mask"], r["gum"],
+               *KN.SAMPLE(space.sizes, r["logits"], r["mask"], r["gum"])))
     times = {}
+    print("    device time per call (queued; host-paced in brackets):")
     for name, (kfn, pfn, byts) in timing.items():
-        kms = cuda_ms(kfn, n=200)
-        pms = cuda_ms(pfn, n=20)
+        kms, kpaced = cuda_ms(kfn, n=200)
+        pms, ppaced = cuda_ms(pfn, n=20)
         bound = byts / HBM_BYTES_PER_S * 1e3
         times[name] = (kms, pms, bound, byts)
-        print(f"    {name:9s} kernel {kms * 1e3:9.2f} us  plain "
-              f"{pms * 1e3:10.2f} us  bound {bound * 1e3:6.2f} us "
-              f"({byts / 1e6:.2f} MB)", flush=True)
+        print(f"    {name:13s} kernel {kms * 1e3:8.2f} ({kpaced * 1e3:8.2f}) us"
+              f"  plain {pms * 1e3:9.2f} ({ppaced * 1e3:9.2f}) us  bound "
+              f"{bound * 1e3:6.2f} us ({byts / 1e6:.2f} MB)", flush=True)
 
     # ---- [5] the main path through the kernels, next to the plain path
     kvec = VecGridnetEnv(kenv, B, max_steps=MAX_STEPS)
@@ -285,14 +442,14 @@ def main() -> int:
         resets += int(krm.sum())
     counts = {k.name: k.launches for k in KN.KERNELS}
     torch.cuda.synchronize()
-    want = dict(actor=2, decode=2, issue_env=2, cycle=1)
-    bad = {n: counts[n] for n in want if counts[n] != want[n] * MAIN_TICKS}
-    if bad:
+    want = dict(actor=2, decode=2, issue_env=2, cycle=1, epilogue=1,
+                splice_obs=1, policy_sample=0)
+    if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
         raise AssertionError("no env reset during the main path")
-    print(f"[5] main path: {MAIN_TICKS} ticks identical to the plain path, "
-          f"{resets} env resets, launches {counts} "
+    print(f"[5] slice 1's main path: {MAIN_TICKS} ticks identical to the "
+          f"plain path, {resets} env resets, launches {counts} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     def run(vec, bot, n):
@@ -311,17 +468,84 @@ def main() -> int:
 
     sps = run(kvec, kbot, TIME_TICKS)
     sps_plain = run(pvec, pbot, TIME_TICKS // 4)
-    print(f"    env-steps/s/card: kernels {sps:.1f}, plain {sps_plain:.1f} "
-          f"(B={B}, 16x16, {TIME_TICKS} steps; {kind}, {smi})", flush=True)
+    print(f"    slice 1 main path env-steps/s/card: kernels {sps:.1f}, plain "
+          f"{sps_plain:.1f} (B={B}, 16x16, {TIME_TICKS} steps; {kind}, "
+          f"{smi})", flush=True)
 
-    # ---- [6] results
+    # ---- [6] the rollout through the kernels, next to the plain path
+    t0 = time.perf_counter()
+    pcfg = PPOConfig(num_envs=B, rollout_len=1, max_steps=MAX_STEPS)
+    trainers = []
+    for env in (kenv, penv):
+        tr = PPOTrainer(env, pcfg, opponent=random_opponent(env, BIAS),
+                        model=GridnetPolicy(space, 20 + cfg.num_types))
+        tr.model.load_state_dict(net.state_dict())
+        trainers.append(tr)
+    ktr, ptr = trainers
+    kts, pts = ktr.init(seed=None), ptr.init(seed=None)
+    kts.env_states, kts.env_steps = realistic.clone(), steps0.clone()
+    pts.env_states, pts.env_steps = realistic.clone(), steps0.clone()
+    ngen = torch.Generator(device=dev)
+    roll_resets = 0
+    KN.reset_counts()
+    for t in range(ROLL_STEPS):
+        ngen.manual_seed(100 + t)
+        nz = ktr.draw_noise(ngen)
+        kts, ktj, klast, kwins = ktr._rollout(kts, noise=lambda _: nz)
+        pts, ptj, plast, pwins = ptr._rollout(pts, noise=lambda _: nz)
+        expect_equal(f"rollout step {t}", state_pairs(
+            kts.env_states, pts.env_states) + [
+            ("steps", kts.env_steps, pts.env_steps)] + [
+            (f, getattr(ktj, f), getattr(ptj, f)) for f in (
+                "obs", "mask", "action", "value", "reward", "done")] + [
+            ("last value", klast, plast), ("wins", kwins, pwins)])
+        expect_close(f"rollout step {t}", [("logprob", ktj.logprob,
+                                            ptj.logprob)])
+        roll_resets += int(ktj.done.sum())
+    roll_counts = {k.name: k.launches for k in KN.KERNELS}
+    torch.cuda.synchronize()
+    if min(roll_counts.values()) == 0:
+        raise AssertionError(f"a kernel was not launched by the rollout: "
+                             f"{roll_counts}")
+    if roll_resets == 0:
+        raise AssertionError("no env reset during the rollout")
+    print(f"[6] rollout: {ROLL_STEPS} steps identical to the plain path "
+          f"(logprob within {LP_TOL}), {roll_resets} env resets, launches "
+          f"{roll_counts} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def roll(tr, n):
+        cfg_n = PPOConfig(num_envs=B, rollout_len=n, max_steps=MAX_STEPS)
+        tr_n = PPOTrainer(tr.env, cfg_n, opponent=tr.opponent,
+                          model=tr.model)
+        ts = tr_n.init(seed=None)
+        ts.env_states, ts.env_steps = realistic.clone(), steps0.clone()
+        g = torch.Generator(device=dev)
+        g.manual_seed(7)
+        tr_n._rollout(ts, gen=g)            # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = tr_n._rollout(ts, gen=g)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        if not torch.isfinite(out[2]).all() or not torch.isfinite(
+                out[1].logprob).all():
+            raise AssertionError("non-finite rollout output")
+        return B * n / sec
+
+    rsps = roll(ktr, ROLL_TIME_STEPS)
+    rsps_plain = roll(ptr, 4)
+    print(f"    rollout env-steps/s/card: kernels {rsps:.1f}, plain "
+          f"{rsps_plain:.1f} (B={B}, 16x16, bf16 policy 64x4, "
+          f"{ROLL_TIME_STEPS} steps; {kind}, {smi})", flush=True)
+
+    # ---- [7] results
     kernels = []
     for k in KN.KERNELS:
         kms, pms, bound, byts = times[k.name]
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
             source=k.source,
-            replaces=k.replaces, launches=counts[k.name],
+            replaces=k.replaces, launches=roll_counts[k.name],
             max_abs_err=errs[k.name], ms=kms, plain_ms=pms, bound_ms=bound,
             bound_by="bytes", library_ms=None))
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,9 @@ the same draws can be fed to the JAX package in tests.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 
 from .. import kernels as KN
@@ -42,6 +45,25 @@ def random_bot(env: GridnetEnv, bias: float = 1.0):
         return random_bot_plain(env, state, player, u, weights)
 
     return bot
+
+
+@dataclasses.dataclass(frozen=True)
+class Opponent:
+    """A bot as the PPO trainer's opponent: ``bot(state, player, u)`` with
+    ``draws`` uniforms per cell (``u`` float32 ``[B, H, W, draws]``, which
+    the trainer draws or takes from its noise source; JAX's bots draw
+    them from a key instead)."""
+    bot: Callable
+    draws: int
+
+    def __call__(self, state: State, player: int, u) -> torch.Tensor:
+        return self.bot(state, player, u)
+
+
+def random_opponent(env: GridnetEnv, bias: float = 5.0) -> Opponent:
+    """``random_bot(env, bias)`` as an opponent: two uniforms per cell,
+    ``uniform(key, (H, W, 2))`` in the JAX package (scripted.py:71)."""
+    return Opponent(random_bot(env, bias), 2)
 
 
 def kth_legal(L: torch.Tensor, j: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,11 @@
 A port of ``microrts_tpu.env.gridnet`` (see its docstring for the Java
 sources each function mirrors).  Every method takes and returns batched
 tensors: states are ``[B, H, W]`` planes and gridnet actions are int32
-``[B, H, W, 7]``.  ``decode`` and ``masks`` dispatch by device like the
-engine: CPU tensors take the plain version, CUDA tensors launch the
-``decode`` and ``actor`` kernels.
+``[B, H, W, 7]``.  ``decode``, ``masks``, the step's rewards, ``dones``,
+``observation`` and ``observation_onehot`` dispatch by device like the
+engine: CPU tensors (or ``plain=True``) take the plain version, CUDA
+tensors launch the ``decode``, ``actor``, ``epilogue`` and ``splice_obs``
+kernels.
 
 Not ported yet: partial observability, ``step_vs`` and the
 ``closertoenemy*`` rewards (they raise).
@@ -223,8 +225,13 @@ class GridnetEnv:
         decode p0 -> issue -> decode p1 against the post-issue state ->
         issue -> cycle (``frame_skip`` times) -> rewards.  Returns
         (state', rewards float32 [B, 2, NR], done bool [B])."""
+        c0, c1, state2, done = self.advance(state, a0, a1)
+        return state2, self.rewards(state, c0, c1, state2), done
+
+    def advance(self, state: State, a0: torch.Tensor, a1: torch.Tensor):
+        """The step up to its epilogue: (candidates p0, candidates p1,
+        state after the cycles, gameover bool [B])."""
         eng = self.engine
-        pre = state
         c0 = self.decode(state, a0, 0)
         state1 = eng.issue_env(state, c0)
         c1 = self.decode(state1, a1, 1)
@@ -233,14 +240,30 @@ class GridnetEnv:
         for _ in range(self.frame_skip - 1):
             state2, d2 = eng.cycle(state2)
             done = done | d2
-        r0 = self._rewards(pre, c0, 0, state2)
-        r1 = self._rewards(pre, c1, 1, state2)
-        return state2, torch.stack([r0, r1], 1), done
+        return c0, c1, state2, done
+
+    def rewards(self, pre: State, c0: Candidates, c1: Candidates,
+                after: State) -> torch.Tensor:
+        """Both players' rewards float32 [B, 2, NR] of the step from
+        ``pre`` to ``after`` with the decoded candidates ``c0``/``c1``."""
+        if self.engine._use_kernel(after.utype):
+            return KN.EPILOGUE(self.cfg, after, pre, c0, c1)[0]
+        return self.rewards_plain(pre, c0, c1, after)
+
+    def rewards_plain(self, pre: State, c0: Candidates, c1: Candidates,
+                      after: State) -> torch.Tensor:
+        return torch.stack([self._rewards(pre, c0, 0, after),
+                            self._rewards(pre, c1, 1, after)], 1)
 
     # ------------------------------------------------------------------
     def observation(self, state: State, player: int) -> torch.Tensor:
         """GameState.getVectorObservation: int32 [B, 6, H, W] planes hp,
         carried, owner-relative, type+1, current action type, walls."""
+        if self.engine._use_kernel(state.utype):
+            return KN.SPLICE_OBS(self.cfg.engine, state, obs=(player,))[1][0]
+        return self.observation_plain(state, player)
+
+    def observation_plain(self, state: State, player: int) -> torch.Tensor:
         exists = state.utype > 0
         owner = state.owner.to(I32)
         ownerp = torch.where(exists & (owner >= 0),
@@ -257,8 +280,15 @@ class GridnetEnv:
 
     def observation_onehot(self, state: State, player: int) -> torch.Tensor:
         """Binarized observation float32 [B, H, W, 5+5+3+(T+1)+6]."""
+        if self.engine._use_kernel(state.utype):
+            return KN.SPLICE_OBS(self.cfg.engine, state,
+                                 onehot=(player,))[2][0]
+        return self.observation_onehot_plain(state, player)
+
+    def observation_onehot_plain(self, state: State,
+                                 player: int) -> torch.Tensor:
         T = self.cfg.engine.num_types
-        obs = self.observation(state, player).long()
+        obs = self.observation_plain(state, player).long()
         oh = torch.nn.functional.one_hot
         return torch.cat([
             oh(obs[:, 0].clamp(0, 4), 5), oh(obs[:, 1].clamp(0, 4), 5),
@@ -283,6 +313,11 @@ class GridnetEnv:
     def dones(self, state: State) -> torch.Tensor:
         """Per-reward-function done flags bool [B, NR]: winloss ->
         gameover; resourcegather -> no resource left; others False."""
+        if self.engine._use_kernel(state.utype):
+            return KN.EPILOGUE(self.cfg, state)[1]
+        return self.dones_plain(state)
+
+    def dones_plain(self, state: State) -> torch.Tensor:
         out = []
         for name in self.cfg.reward_fns:
             if name == "winloss":

@@ -9,10 +9,11 @@ ones while the returned state and observation are the fresh reset ones
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
+from .. import kernels as KN
 from ..engine.types import State
 from .gridnet import GridnetEnv
 
@@ -31,21 +32,39 @@ class VecGridnetEnv:
         return self.env.reset(self.num_envs), steps
 
     def step(self, states: State, steps: torch.Tensor, a0: torch.Tensor,
-             a1: torch.Tensor):
+             a1: torch.Tensor, onehot: Sequence[int] = ()):
         """Step all envs; auto-reset finished ones.
 
         Returns (states', steps', obs int32 [2, N, 6, H, W], rewards
-        float32 [N, 2, NR], dones bool [2, N, NR], reset_mask bool [N])."""
+        float32 [N, 2, NR], dones bool [2, N, NR], reset_mask bool [N]),
+        and with ``onehot`` (players) also the one-hot observation float32
+        [len(onehot), N, H, W, C] of states' for those players.  On CUDA
+        tensors the epilogue is two kernels: ``epilogue`` (rewards, dones,
+        reset arithmetic) and ``splice_obs`` (reset splice, observations).
+        """
         env = self.env
-        nstates, rewards, _ = env.step(states, a0, a1)
-        done_vec = env.dones(nstates)
-        steps1 = steps + 1
-        reset_mask = done_vec[:, 0] | (steps1 >= self.max_steps)
-        out_states = nstates.select(reset_mask, env.init_state)
-        out_steps = torch.where(reset_mask, 0, steps1).to(torch.int32)
-        obs = torch.stack([env.observation(out_states, p) for p in (0, 1)])
-        dones = torch.stack([done_vec, done_vec])
-        return out_states, out_steps, obs, rewards, dones, reset_mask
+        c0, c1, nstates, _ = env.advance(states, a0, a1)
+        if env.engine._use_kernel(nstates.utype):
+            rewards, dones, reset_mask, out_steps = KN.EPILOGUE(
+                env.cfg, nstates, states, c0, c1, steps, self.max_steps,
+                done_copies=2)
+            out_states, obs, oh = KN.SPLICE_OBS(
+                env.cfg.engine, nstates, reset_mask, env.init_state,
+                obs=(0, 1), onehot=tuple(onehot))
+        else:
+            rewards = env.rewards_plain(states, c0, c1, nstates)
+            done_vec = env.dones_plain(nstates)
+            steps1 = steps + 1
+            reset_mask = done_vec[:, 0] | (steps1 >= self.max_steps)
+            out_states = nstates.select(reset_mask, env.init_state)
+            out_steps = torch.where(reset_mask, 0, steps1).to(torch.int32)
+            obs = torch.stack([env.observation_plain(out_states, p)
+                               for p in (0, 1)])
+            dones = torch.stack([done_vec, done_vec])
+            oh = (torch.stack([env.observation_onehot_plain(out_states, p)
+                               for p in onehot]) if onehot else None)
+        out = (out_states, out_steps, obs, rewards, dones, reset_mask)
+        return out + (oh,) if onehot else out
 
     def masks(self, states: State) -> torch.Tensor:
         """int32 [2, N, H, W, M]."""

@@ -5,12 +5,13 @@ shared library with a plain C interface under ``microrts_tpu_torch/build/``
 at first use (all sources at once, one ``nvcc`` each), and loaded with
 ``ctypes``.  Nothing is built or loaded when this module is imported.
 
-The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``) take CUDA
-tensors only: they check device, dtype, shape and contiguity, allocate the
-outputs, launch on PyTorch's current stream, raise if the launch reports a
-CUDA error, and count their launches in ``.launches``.  The callers in
-``engine``, ``env`` and ``bots`` send CPU tensors to the plain PyTorch
-versions instead; nothing falls back from a failed build or launch.
+The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
+``EPILOGUE``, ``SPLICE_OBS``, ``SAMPLE``) take CUDA tensors only: they
+check device, dtype, shape and contiguity, allocate the outputs, launch on
+PyTorch's current stream, raise if the launch reports a CUDA error, and
+count their launches in ``.launches``.  The callers in ``engine``, ``env``,
+``bots`` and ``models`` send CPU tensors to the plain PyTorch versions
+instead; nothing falls back from a failed build or launch.
 """
 
 from __future__ import annotations
@@ -30,10 +31,13 @@ from ..engine.types import FIELD_DTYPES, Candidates, EngineConfig, State
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
-NAMES = ("actor", "decode", "issue_env", "cycle")
+NAMES = ("actor", "decode", "issue_env", "cycle", "epilogue",
+         "splice_obs", "policy_sample")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAXT = 16
+MAXNR = 8
+NCOMP = 7
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # name -> nvcc's -Xptxas -v report
@@ -117,6 +121,16 @@ class _CandP(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in Candidates.FIELDS]
 
 
+class _EpiCfg(ctypes.Structure):
+    _fields_ = [("nr", ctypes.c_int), ("fns", ctypes.c_int * MAXNR)] + [
+        (f, ctypes.c_int) for f in ("worker_id", "base_id", "barracks_id",
+                                    "light_id", "heavy_id", "ranged_id")]
+
+
+class _Space(ctypes.Structure):
+    _fields_ = [("sizes", ctypes.c_int * NCOMP), ("total", ctypes.c_int)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -132,6 +146,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "decode": [cfg, st, _I, _I, _P, _I, cd, _P],
         "issue_env": [cfg, st, _I, cd, st, _P],
         "cycle": [cfg, st, _I, st, _P, _P],
+        "epilogue": [cfg, ctypes.POINTER(_EpiCfg), _I, _P, _P, cd, cd, _P,
+                     _P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
+        "splice_obs": [cfg, st, _I, _P, st, st, _P, _P, _P, _P, _P],
+        "policy_sample": [ctypes.POINTER(_Space), _I, _I, _P, _P, _P, _P,
+                          _P, _P, _P, _P],
     }[name]
     return lib
 
@@ -313,12 +332,174 @@ class _Cycle(Kernel):
         return out, done
 
 
+# reward function name -> the epilogue kernel's code (csrc/epilogue.cu)
+REWARD_CODES = {"winloss": 0, "resourcegather": 1, "produceworker": 2,
+                "producebuilding": 3, "producecombat": 4, "attack": 5}
+_EPI: Dict[object, _EpiCfg] = {}
+
+
+def _epi_cfg(env_cfg) -> _EpiCfg:
+    if env_cfg not in _EPI:
+        fns = env_cfg.reward_fns
+        if len(fns) > MAXNR:
+            raise ValueError(f"epilogue takes at most {MAXNR} rewards")
+        for n in fns:
+            if n not in REWARD_CODES:
+                raise NotImplementedError(f"epilogue: reward {n!r}")
+        e = _EpiCfg(nr=len(fns), **{f: int(getattr(env_cfg, f)) for f in (
+            "worker_id", "base_id", "barracks_id", "light_id", "heavy_id",
+            "ranged_id")})
+        e.fns[:len(fns)] = [REWARD_CODES[n] for n in fns]
+        _EPI[env_cfg] = e
+    return _EPI[env_cfg]
+
+
+class _Epilogue(Kernel):
+    def __call__(self, env_cfg, post: State, pre: Optional[State] = None,
+                 c0: Optional[Candidates] = None,
+                 c1: Optional[Candidates] = None,
+                 steps: Optional[torch.Tensor] = None, max_steps: int = 0,
+                 done_copies: int = 1):
+        """Rewards, dones and the auto-reset arithmetic of one step.
+
+        ``post`` is the state after the cycle.  With ``pre`` (the state
+        before the step) and both players' candidates, the rewards float32
+        ``[B, 2, NR]`` are computed; with ``steps`` (int32 ``[B]``), the
+        reset mask bool ``[B]`` and the next steps int32 ``[B]``.  The dones
+        bool ``[B, NR]`` are always computed, written ``done_copies`` times
+        (``[done_copies, B, NR]`` when above 1).  Returns (rewards or None,
+        dones, reset or None, steps' or None)."""
+        cfg = env_cfg.engine
+        sp, B = _state_p(post, cfg)
+        dev = post.utype.device
+        plane = (B, cfg.height, cfg.width)
+        nr = len(env_cfg.reward_fns)
+        rew = reset = nsteps = None
+        pre_u = pre_o = cp0 = cp1 = None
+        if pre is not None:
+            pre_u = _check("pre.utype", pre.utype, torch.int8, plane, dev)
+            pre_o = _check("pre.owner", pre.owner, torch.int8, plane, dev)
+            cp0 = ctypes.byref(_cand_p(c0, plane, dev))
+            cp1 = ctypes.byref(_cand_p(c1, plane, dev))
+            rew = torch.empty((B, 2, nr), dtype=torch.float32, device=dev)
+        dshape = (B, nr) if done_copies == 1 else (done_copies, B, nr)
+        dones = torch.empty(dshape, dtype=torch.bool, device=dev)
+        if steps is not None:
+            _check("steps", steps, torch.int32, (B,), dev)
+            reset = torch.empty(B, dtype=torch.bool, device=dev)
+            nsteps = torch.empty(B, dtype=torch.int32, device=dev)
+
+        def ptr(t):
+            return t.data_ptr() if t is not None else None
+
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)),
+                         ctypes.byref(_epi_cfg(env_cfg)), B, pre_u, pre_o,
+                         cp0, cp1, sp.utype, sp.owner, sp.carried,
+                         ptr(steps), int(max_steps), ptr(rew),
+                         dones.data_ptr(), int(done_copies), ptr(reset),
+                         ptr(nsteps), _stream(dev))
+        return rew, dones, reset, nsteps
+
+
+class _SpliceObs(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State,
+                 reset: Optional[torch.Tensor] = None,
+                 init: Optional[State] = None, obs=(), onehot=()):
+        """The auto-reset splice and the observations.
+
+        With ``reset`` (bool ``[B]``) and ``init`` (a batch-1 State), the
+        spliced State (every field new): ``init`` where ``reset`` else
+        ``state``.  ``obs`` and ``onehot`` name the players whose int32
+        observation ``[len(obs), B, 6, H, W]`` and float32 one-hot
+        ``[len(onehot), B, H, W, 20+T]`` of the (spliced) state are
+        written.  Returns (State or None, obs or None, onehot or None)."""
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W, T = cfg.height, cfg.width, cfg.num_types
+        out = op = ip = None
+        if reset is not None:
+            _check("reset", reset, torch.bool, (B,), dev)
+            ip, one = _state_p(init, cfg)
+            if one != 1:
+                raise ValueError(f"splice_obs: init has batch {one}, not 1")
+            ip = ctypes.byref(ip)
+            out = _fresh(state, FIELD_DTYPES)
+            op = ctypes.byref(_state_p(out, cfg)[0])
+        ob = oh = None
+        ptrs = [None] * 4     # obs p0, obs p1, one-hot p0, one-hot p1
+        if obs:
+            ob = torch.empty((len(obs), B, 6, H, W), dtype=torch.int32,
+                             device=dev)
+            for i, p in enumerate(obs):
+                ptrs[int(p)] = ob[i].data_ptr()
+        if onehot:
+            oh = torch.empty((len(onehot), B, H, W, 20 + T),
+                             dtype=torch.float32, device=dev)
+            for i, p in enumerate(onehot):
+                ptrs[2 + int(p)] = oh[i].data_ptr()
+        if out is None and ob is None and oh is None:
+            raise ValueError("splice_obs: nothing to compute")
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
+                         reset.data_ptr() if reset is not None else None,
+                         ip, op, *ptrs, _stream(dev))
+        return out, ob, oh
+
+
+class _Sample(Kernel):
+    def __call__(self, sizes, logits: torch.Tensor, mask: torch.Tensor,
+                 gumbel: Optional[torch.Tensor] = None):
+        """Masked factored categorical over the component ``sizes``.
+
+        ``logits`` float32 ``[B, H, W, A]``, ``mask`` the env's int32
+        ``[B, H, W, 1 + A]`` (channel 0 skipped), ``gumbel`` float32
+        ``[B, H, W, A]`` or None for the greedy argmax.  Returns (action
+        int32 ``[B, H, W, 7]``, logprob float32 ``[B, H, W]``, entropy
+        ``[B, H, W]``, per-env logprob over the cells that can act ``[B]``);
+        the last three are None when greedy."""
+        if len(sizes) != NCOMP:
+            raise ValueError(f"sample: expected {NCOMP} components")
+        A = sum(sizes)
+        dev = logits.device
+        if logits.dim() != 4:
+            raise ValueError(f"sample: logits must be [B, H, W, A], got "
+                             f"{tuple(logits.shape)}")
+        B, H, W = logits.shape[:3]
+        _check("logits", logits, torch.float32, (B, H, W, A), dev)
+        _check("mask", mask, torch.int32, (B, H, W, A + 1), dev)
+        act = torch.empty((B, H, W, NCOMP), dtype=torch.int32, device=dev)
+        lp = ent = env_lp = None
+        if gumbel is not None:
+            _check("gumbel", gumbel, torch.float32, (B, H, W, A), dev)
+            lp = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+            ent = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+            env_lp = torch.empty(B, dtype=torch.float32, device=dev)
+        space = _Space(total=A)
+        space.sizes[:] = [int(s) for s in sizes]
+
+        def ptr(t):
+            return t.data_ptr() if t is not None else None
+
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(space), B, H * W, logits.data_ptr(),
+                         mask.data_ptr(), ptr(gumbel), act.data_ptr(),
+                         ptr(lp), ptr(ent), ptr(env_lp), _stream(dev))
+        return act, lp, ent, env_lp
+
+
 # ``replaces``: the JAX function each kernel stands for (file:line)
 ACTOR = _Actor("actor", "microrts_tpu/engine/kernel.py:742")  # + scripted.py:69
 DECODE = _Decode("decode", "microrts_tpu/env/gridnet.py:139")
 ISSUE_ENV = _IssueEnv("issue_env", "microrts_tpu/engine/kernel.py:456")
 CYCLE = _Cycle("cycle", "microrts_tpu/engine/kernel.py:508")
-KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE)
+# + gridnet.py:467/501, vec.py:73
+EPILOGUE = _Epilogue("epilogue", "microrts_tpu/env/gridnet.py:491")
+# + gridnet.py:446, vec.py:92
+SPLICE_OBS = _SpliceObs("splice_obs", "microrts_tpu/env/gridnet.py:424")
+# + gridnet_policy.py:103
+SAMPLE = _Sample("policy_sample", "microrts_tpu/models/gridnet_policy.py:79")
+KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE)
 
 
 def reset_counts() -> None:

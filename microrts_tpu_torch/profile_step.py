@@ -1,17 +1,26 @@
-"""Where the time of one env step goes, on a CUDA card.
+"""Where the time of one env step or one rollout step goes, on a CUDA card.
 
-    python -m microrts_tpu_torch.profile_step [--batch 1024] [--steps 50]
+    python -m microrts_tpu_torch.profile_step [--mode step|rollout]
+        [--batch 1024] [--steps 50]
 
-Runs the kernel path (``VecGridnetEnv`` + ``random_bot``, bias 5) on
-basesWorkers16x16 from a mid-game state and reports:
+Runs the kernel path on basesWorkers16x16 from a mid-game state:
 
-* per phase of the step (uniforms, actors, decode/issue per player,
-  cycle, rewards, dones, reset splice, observation), the span between
-  CUDA events recorded around it on the card's timeline (it includes time
-  the card waits for the host to launch);
+* ``step``: ``VecGridnetEnv.step`` with RandomBiasedAI (bias 5) actors for
+  both players (slice 1's main path);
+* ``rollout``: one step of ``PPOTrainer._rollout``: the gumbel and
+  opponent draws, player 0's masks (``actor``), the bf16 ``GridnetPolicy``
+  forward (width 64, 4 blocks, cuDNN), the ``policy_sample`` kernel, the
+  RandomBiasedAI opponent (``actor``), then the vec step;
+
+and reports:
+
+* per phase of the step, the span between CUDA events recorded around it
+  on the card's timeline (it includes time the card waits for the host to
+  launch);
 * the step's wall time and env-steps/s;
 * a ``torch.profiler`` window: device time by kernel name and the share
-  of the window the device was busy.
+  of the window the device was busy (the union of the kernels' intervals
+  on the card's timeline over the host clock's window).
 
 Prints the tables and one JSON line.
 """
@@ -24,24 +33,20 @@ import time
 
 import torch
 
-from .bots.scripted import random_bot
+from . import kernels as KN
+from .bots.scripted import random_bot, random_opponent
 from .env.gridnet import GridnetEnv
 from .env.vec import VecGridnetEnv
+from .models.gridnet_policy import gumbel_noise, sample_action
+from .train.ppo import PPOConfig, PPOTrainer
 from .utils.assets import asset_path
 
 MAP = "maps/16x16/basesWorkers16x16.xml"
 
 
-def step_phases(env, vec, bot, s, steps, gen, ev):
-    """``VecGridnetEnv.step`` with the random actors, split into phases;
-    ``ev(name)`` records a CUDA event after each phase."""
-    B, H, W = s.utype.shape
+def vec_phases(env, vec, s, steps, a0, a1, ev, onehot=()):
+    """``VecGridnetEnv.step`` on CUDA tensors, split into phases."""
     eng = env.engine
-    u0 = torch.rand((B, H, W, 2), generator=gen, device=s.device)
-    u1 = torch.rand((B, H, W, 2), generator=gen, device=s.device)
-    ev("uniforms")
-    a0, a1 = bot(s, 0, u0), bot(s, 1, u1)
-    ev("actor x2")
     c0 = env.decode(s, a0, 0)
     ev("decode p0")
     s1 = eng.issue_env(s, c0)
@@ -52,22 +57,51 @@ def step_phases(env, vec, bot, s, steps, gen, ev):
     ev("issue_env p1")
     s3, _ = eng.cycle(s2)
     ev("cycle")
-    rew = torch.stack([env._rewards(s, c0, 0, s3), env._rewards(s, c1, 1, s3)], 1)
-    ev("rewards")
-    done = env.dones(s3)
-    ev("dones")
-    steps1 = steps + 1
-    reset = done[:, 0] | (steps1 >= vec.max_steps)
-    out = s3.select(reset, env.init_state)
-    steps = torch.where(reset, 0, steps1).to(torch.int32)
-    ev("reset splice")
-    obs = torch.stack([env.observation(out, p) for p in (0, 1)])
-    ev("observation")
-    return out, steps, obs, rew
+    rew, _, reset, steps = KN.EPILOGUE(env.cfg, s3, s, c0, c1, steps,
+                                       vec.max_steps, done_copies=2)
+    ev("epilogue")
+    out, _, oh = KN.SPLICE_OBS(env.cfg.engine, s3, reset, env.init_state,
+                               obs=(0, 1), onehot=onehot)
+    ev("splice_obs")
+    return out, steps, rew, reset, oh
+
+
+def step_phases(env, vec, bot, s, steps, gen, ev):
+    """Slice 1's step: random actors for both players, then the vec step."""
+    B, H, W = s.utype.shape
+    u0 = torch.rand((B, H, W, 2), generator=gen, device=s.device)
+    u1 = torch.rand((B, H, W, 2), generator=gen, device=s.device)
+    ev("uniforms")
+    a0, a1 = bot(s, 0, u0), bot(s, 1, u1)
+    ev("actor x2")
+    out, steps, *_ = vec_phases(env, vec, s, steps, a0, a1, ev)
+    return out, steps
+
+
+def rollout_phases(tr, s, steps, obs, gen, ev):
+    """One step of ``PPOTrainer._rollout`` (RandomBiasedAI opponent)."""
+    env, space = tr.env, tr.space
+    B, H, W = s.utype.shape
+    g = gumbel_noise((B, H, W, space.total), gen, s.device)
+    u1 = torch.rand((B, H, W, 2), generator=gen, device=s.device)
+    ev("gumbel + opponent draws")
+    mask = tr._mask(s)
+    ev("actor p0 masks")
+    with torch.no_grad():
+        logits, value = tr.model(obs)
+    ev("policy forward (cuDNN)")
+    action, _, _, logprob = sample_action(logits, mask, space, g)
+    ev("policy_sample")
+    a1 = tr._opp_action(s, u1)
+    ev("opponent actor")
+    out, steps, rew, reset, oh = vec_phases(env, tr.vec, s, steps, action,
+                                            a1, ev, onehot=(0,))
+    return out, steps, oh[0]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("step", "rollout"), default="step")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--warm", type=int, default=400,
@@ -84,7 +118,22 @@ def main() -> int:
     gen.manual_seed(0)
     s, steps = vec.reset()
     for _ in range(args.warm):
-        s, steps, *_ = step_phases(env, vec, bot, s, steps, gen, lambda n: None)
+        s, steps = step_phases(env, vec, bot, s, steps, gen, lambda n: None)
+    if args.mode == "rollout":
+        tr = PPOTrainer(env, PPOConfig(num_envs=B, max_steps=5000),
+                        opponent=random_opponent(env, 5.0))
+        tr.init(seed=0)
+        obs = tr._obs(s)
+
+        def one(ev):
+            nonlocal s, steps, obs
+            s, steps, obs = rollout_phases(tr, s, steps, obs, gen, ev)
+    else:
+        def one(ev):
+            nonlocal s, steps
+            s, steps = step_phases(env, vec, bot, s, steps, gen, ev)
+    for _ in range(3):
+        one(lambda n: None)
     torch.cuda.synchronize()
 
     marks = []
@@ -99,15 +148,17 @@ def main() -> int:
     for _ in range(args.steps):
         marks.clear()
         ev("start")
-        s, steps, *_ = step_phases(env, vec, bot, s, steps, gen, ev)
+        one(ev)
         torch.cuda.synchronize()
         for (_, a), (name, b) in zip(marks, marks[1:]):
             spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
     wall = (time.perf_counter() - t0) / args.steps * 1e3
     total = sum(spans.values())
-    print(f"step phases at B={B} ({args.steps} steps, card timeline, ms/step):")
-    for name, v in spans.items():
-        print(f"  {name:14s} {v / args.steps:8.3f}  {100 * v / total:5.1f}%")
+    name = torch.cuda.get_device_name(0)
+    print(f"{args.mode} phases at B={B} ({args.steps} steps, card timeline, "
+          f"ms/step; {name}):")
+    for k, v in spans.items():
+        print(f"  {k:24s} {v / args.steps:8.3f}  {100 * v / total:5.1f}%")
     print(f"  wall per step {wall:.3f} ms (synchronised each step); "
           f"{B / wall * 1e3:.1f} env-steps/s")
 
@@ -117,24 +168,30 @@ def main() -> int:
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
         for _ in range(n_prof):
-            s, steps, *_ = step_phases(env, vec, bot, s, steps, gen,
-                                       lambda n: None)
+            one(lambda n: None)
         torch.cuda.synchronize()
         window = (time.perf_counter() - t1) * 1e6
-    avgs = prof.key_averages()
-    dev_us = sum(getattr(a, "self_device_time_total", 0.0) for a in avgs)
-    top = sorted(avgs, key=lambda a: -getattr(a, "self_device_time_total", 0))
-    print("device time by kernel (top 12, us per step):")
-    for a in top[:12]:
-        print(f"  {a.self_device_time_total / n_prof:9.1f}  {a.count // n_prof:5d}x"
-              f"  {a.key[:70]}")
-    print(f"device busy {dev_us / n_prof / 1e3:.3f} ms of {window / n_prof / 1e3:.3f} "
-          f"ms per step ({100 * dev_us / window:.1f}%)")
+    cuda = torch.autograd.DeviceType.CUDA
+    spans_dev = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if e.device_type == cuda)
+    busy, end = 0.0, float("-inf")      # union of the kernels' intervals
+    for a, b in spans_dev:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kern = [a for a in prof.key_averages() if a.device_type == cuda]
+    kern.sort(key=lambda a: -a.self_device_time_total)
+    print("device time by kernel (top 14, us per step):")
+    for a in kern[:14]:
+        print(f"  {a.self_device_time_total / n_prof:9.1f}  "
+              f"{a.count // n_prof:5d}x  {a.key[:70]}")
+    print(f"device busy {busy / n_prof / 1e3:.3f} ms of "
+          f"{window / n_prof / 1e3:.3f} ms per step "
+          f"({100 * busy / window:.1f}%)")
     print(json.dumps(dict(
-        batch=B, wall_ms_per_step=wall, env_steps_per_s=B / wall * 1e3,
+        mode=args.mode, batch=B, wall_ms_per_step=wall,
+        env_steps_per_s=B / wall * 1e3,
         phases_ms={k: v / args.steps for k, v in spans.items()},
-        device_busy_share=dev_us / window,
-        device=torch.cuda.get_device_name(0))))
+        device_busy_share=busy / window, device=name)))
     return 0
 
 

@@ -1,22 +1,29 @@
-"""Card tests of the port: the four CUDA kernels against their plain
-PyTorch versions, on the main path with resets.  They skip on a machine
-without a CUDA card.  This file imports neither JAX nor the JAX package,
-so it runs where only the port is installed::
+"""Card tests of the port: the CUDA kernels against their plain PyTorch
+versions, on the main path with resets and on the policy-driven rollout.
+They skip on a machine without a CUDA card.  This file imports neither JAX
+nor the JAX package, so it runs where only the port is installed::
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 
-Tolerance: exact.
+Tolerance: exact, except the policy sampler's logprob and entropy (fp32
+sums in another order than the plain version's: 1e-5 relative + 1e-4
+absolute).
 """
 
 import pytest
 import torch
 
-from microrts_tpu_torch.bots.scripted import random_bot
+from microrts_tpu_torch.bots.scripted import random_bot, random_opponent
 from microrts_tpu_torch.env.gridnet import GridnetEnv
 from microrts_tpu_torch.env.vec import VecGridnetEnv
+from microrts_tpu_torch.models.gridnet_policy import (
+    ActionSpace, GridnetPolicy, greedy_action, gumbel_noise, sample_action)
+from microrts_tpu_torch.train.ppo import PPOConfig, PPOTrainer
 from microrts_tpu_torch.utils.assets import asset_path
 
 BIAS = 5.0
+MAPS = ["maps/8x8/melee8x8Mixed6.xml", "maps/16x16/basesWorkers16x16.xml"]
+LP_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
 def _need_card():
@@ -25,10 +32,9 @@ def _need_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("map_rel", ["maps/8x8/melee8x8Mixed6.xml",
-                                     "maps/16x16/basesWorkers16x16.xml"])
+@pytest.mark.parametrize("map_rel", MAPS)
 def test_kernel_path_equals_plain_on_card(map_rel):
-    """The main path through the four kernels equals the plain path on the
+    """The main path through the kernels equals the plain path on the
     card, tick by tick with resets, and launches each kernel as often as
     the step calls it."""
     _need_card()
@@ -58,7 +64,138 @@ def test_kernel_path_equals_plain_on_card(map_rel):
         assert torch.equal(kvec.masks(ks), pvec.masks(ps)), t
     torch.cuda.synchronize()
     assert {k.name: k.launches for k in KN.KERNELS} == dict(
-        actor=4 * ticks, decode=2 * ticks, issue_env=2 * ticks, cycle=ticks)
+        actor=4 * ticks, decode=2 * ticks, issue_env=2 * ticks, cycle=ticks,
+        epilogue=ticks, splice_obs=ticks, policy_sample=0)
+
+
+def _states(env, B, ticks, seed):
+    """Plain-path states along a random-bot trajectory on the card:
+    [(pre, c0, c1, post)] of every tick."""
+    dev = env.device
+    bot = random_bot(env, BIAS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    s = env.reset(B)
+    out = []
+    for _ in range(ticks):
+        u0, u1 = (torch.rand((B, env.h, env.w, 2), generator=g, device=dev)
+                  for _ in (0, 1))
+        c0, c1, post, _ = env.advance(s, bot(s, 0, u0), bot(s, 1, u1))
+        out.append((s, c0, c1, post))
+        s = post
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_epilogue_splice_sample_equal_plain_on_card(map_rel):
+    """EPILOGUE, SPLICE_OBS and SAMPLE against their plain versions at
+    B=64 on the states of a 60-tick trajectory (with terminal envs forced
+    in by max_steps and by removing a player's units)."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    dev = torch.device("cuda")
+    B = 64
+    env = GridnetEnv(asset_path(map_rel), device=dev, plain=True)
+    cfg = env.cfg.engine
+    T = cfg.num_types
+    space = ActionSpace(T, 2 * cfg.max_range + 1)
+    net = GridnetPolicy(space, 20 + T).init_params(
+        torch.Generator().manual_seed(0)).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    recs = _states(env, B, 60, seed=2)
+    for t, (pre, c0, c1, post) in enumerate(recs[::6]):
+        if t == 1:      # player 0 loses every unit in half the envs
+            gone = (post.owner == 0) & (torch.arange(B, device=dev) % 2 == 0
+                                        )[:, None, None]
+            post = post.replace(utype=torch.where(gone, 0, post.utype),
+                                owner=torch.where(gone, -1, post.owner))
+        steps = torch.randint(0, 30, (B,), generator=g, device=dev,
+                              dtype=torch.int32)
+        rew, dn, rm, st = KN.EPILOGUE(env.cfg, post, pre, c0, c1, steps, 30,
+                                      done_copies=2)
+        pdn = env.dones_plain(post)
+        assert torch.equal(rew, env.rewards_plain(pre, c0, c1, post)), t
+        assert torch.equal(dn, torch.stack([pdn, pdn])), t
+        s1 = steps + 1
+        prm = pdn[:, 0] | (s1 >= 30)
+        assert torch.equal(rm, prm), t
+        assert torch.equal(st, torch.where(prm, 0, s1).int()), t
+        assert torch.equal(KN.EPILOGUE(env.cfg, post)[1], pdn), t
+
+        sp, obs, oh = KN.SPLICE_OBS(cfg, post, rm, env.init_state,
+                                    obs=(0, 1), onehot=(1, 0))
+        psp = post.select(rm, env.init_state)
+        assert sp.equal(psp) == (True, ""), t
+        for i, p in enumerate((0, 1)):
+            assert torch.equal(obs[i], env.observation_plain(psp, p)), t
+        for i, p in enumerate((1, 0)):
+            assert torch.equal(oh[i], env.observation_onehot_plain(psp, p))
+        for p in (0, 1):
+            assert torch.equal(KN.SPLICE_OBS(cfg, post, onehot=(p,))[2][0],
+                               env.observation_onehot_plain(post, p)), t
+
+        with torch.no_grad():
+            logits, _ = net(env.observation_onehot_plain(psp, 0))
+        mask = env.masks_plain(psp, 0)
+        gum = gumbel_noise(logits.shape, g, dev)
+        ka, klp, kent, kenv = sample_action(logits, mask, space, gum)
+        pa, plp, pent, penv = sample_action(logits, mask, space, gum,
+                                            plain=True)
+        assert torch.equal(ka, pa), t
+        for k, p in ((klp, plp), (kent, pent), (kenv, penv)):
+            torch.testing.assert_close(k, p, **LP_TOL)
+        assert torch.equal(greedy_action(logits, mask, space),
+                           greedy_action(logits, mask, space, plain=True))
+        # an all-masked cell samples from its raw logits
+        none = torch.zeros_like(mask)
+        assert torch.equal(sample_action(logits, none, space, gum)[0],
+                           sample_action(logits, none, space, gum,
+                                         plain=True)[0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("selfplay", [False, True])
+def test_rollout_kernel_path_equals_plain_on_card(selfplay):
+    """PPOTrainer._rollout through the kernels equals the plain path for 8
+    steps (16x16, 32 envs, bf16 policy, resets by max_steps), and launches
+    every kernel of the rollout."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    dev = torch.device("cuda")
+    path = asset_path(MAPS[1])
+    cfg = PPOConfig(num_envs=32, rollout_len=8, max_steps=5)
+    out = []
+    for plain in (False, True):
+        torch.backends.cudnn.deterministic = True   # same logits both ways
+        torch.backends.cudnn.benchmark = False
+        env = GridnetEnv(path, device=dev, plain=plain)
+        tr = PPOTrainer(env, cfg, selfplay=selfplay,
+                        opponent=None if selfplay else random_opponent(env))
+        ts = tr.init(seed=0)
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        KN.reset_counts()
+        out.append(tr._rollout(ts, gen=g))
+        counts = {k.name: k.launches for k in KN.KERNELS}
+        if not plain:
+            assert all(v > 0 for v in counts.values()), counts
+            assert counts["policy_sample"] == 8 * (2 if selfplay else 1)
+            assert counts["epilogue"] == 8
+            # the first observation, one per step, and in self-play the
+            # opponent's one-hot observation every step
+            assert counts["splice_obs"] == 9 + (8 if selfplay else 0)
+        else:
+            assert not any(counts.values()), counts
+    (kts, ktr, klast, kwins), (pts, ptr, plast, pwins) = out
+    assert kts.env_states.equal(pts.env_states) == (True, "")
+    for f in ("obs", "mask", "action", "reward", "done", "value"):
+        assert torch.equal(getattr(ktr, f), getattr(ptr, f)), f
+    assert ktr.done.any()
+    torch.testing.assert_close(ktr.logprob, ptr.logprob, **LP_TOL)
+    assert torch.equal(klast, plast) and int(kwins) == int(pwins)
 
 
 @pytest.mark.gpu
@@ -76,3 +213,29 @@ def test_kernel_rejects_bad_input_on_card():
     u = torch.rand((4, 8, 8, 2), device="cuda").transpose(1, 2)
     with pytest.raises(ValueError):
         KN.ACTOR(env.cfg.engine, s, 0, u=u, weights=(1,) * 6)
+    # epilogue, splice_obs, policy_sample
+    c = env.decode(s, torch.zeros((4, 8, 8, 7), dtype=torch.int32,
+                                  device="cuda"), 0)
+    with pytest.raises(TypeError):
+        KN.EPILOGUE(env.cfg, s, s, c, c, torch.zeros(4, device="cuda"), 9)
+    with pytest.raises(ValueError):
+        KN.EPILOGUE(env.cfg, s, s.replace(owner=s.owner[:2]), c, c)
+    with pytest.raises(ValueError):
+        KN.SPLICE_OBS(env.cfg.engine, s, torch.zeros(4, dtype=torch.bool,
+                                                     device="cuda"), s)
+    with pytest.raises(TypeError):
+        KN.SPLICE_OBS(env.cfg.engine, s, torch.zeros(4, device="cuda"),
+                      env.init_state)
+    with pytest.raises(ValueError):
+        KN.SPLICE_OBS(env.cfg.engine, s)
+    sizes = (6, 4, 4, 4, 4, 7, 49)
+    logits = torch.zeros((4, 8, 8, 78), device="cuda")
+    mask = torch.ones((4, 8, 8, 79), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        KN.SAMPLE(sizes, logits, mask[..., 1:].contiguous())
+    with pytest.raises(TypeError):
+        KN.SAMPLE(sizes, logits, mask.bool())
+    with pytest.raises(ValueError):
+        KN.SAMPLE(sizes, logits, mask, logits[..., :77].contiguous())
+    with pytest.raises(ValueError):
+        KN.SAMPLE(sizes, logits.transpose(1, 2), mask)
