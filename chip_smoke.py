@@ -7,18 +7,25 @@ Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
 envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the seven CUDA kernels from ``microrts_tpu_torch/
-   kernels/csrc`` (one ``nvcc`` each, in parallel; ``-Xptxas -v`` report
-   printed);
+2. build: compiles the ten CUDA kernels from ``microrts_tpu_torch/
+   kernels/csrc`` (one ``nvcc`` per source, in parallel; ``-Xptxas -v``
+   report printed);
 3. realistic states: runs the plain PyTorch path (RandomBiasedAI, bias 5,
    both players) on the card until the recorded kernel inputs hold busy
    units, kept produces and completing attacks (at least 20), harvests
    and returns; one more record has terminal envs (a player's units
-   removed) for the winloss reward;
+   removed) for the winloss reward; then a plain WorkerRush-vs-LightRush
+   run (each env opens with a few random ticks, so that the envs differ)
+   records rush states, plus a copy with the bases removed (rebuilds);
 4. kernel vs plain: every kernel output equals its plain version on those
-   inputs (tolerance: exact; the policy sampler's logprob and entropy
-   within 1e-5 relative + 1e-4 absolute, its actions exact, on logits of
-   the seeded bf16 ``GridnetPolicy`` at full width); each kernel and its
+   inputs (tolerance: exact; the policy sampler's and K7b's logprob and
+   entropy within 1e-5 relative + 1e-4 absolute, K7b's gradient of the
+   logits within 1e-4 relative + 1e-5 absolute of autograd through the
+   plain version, under upstream weights drawn from a normal; the logits
+   are the seeded bf16 ``GridnetPolicy``'s at full width, over four
+   recorded ticks: a 4096-sample minibatch); ``rush`` for every ported
+   ``RushSpec`` (and the expansion branch), both players, with the
+   decision counts of the plain version printed; each kernel and its
    plain version are timed with CUDA events;
 5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
    kernels next to the plain path, same start and uniforms, 256 ticks
@@ -29,13 +36,37 @@ envs:
    64 / 4 blocks, RandomBiasedAI opponent, cuDNN deterministic) through
    the kernels next to the plain path, 16 steps from the same states with
    the same noise; states, obs, masks, actions, values, rewards and dones
-   identical at every step; every one of the seven kernels launched;
-   then a timed rollout gives env-steps/s;
-7. one JSON line of every kernel, the ``nvidia-smi`` line, and as the last
+   identical at every step; the seven rollout kernels launched, the
+   learner's and the rush bot's not; then a timed rollout gives
+   env-steps/s;
+7. training: ``PPOTrainer.update`` (WorkerRush opponent, rollout_len 16,
+   4 epochs x 4 minibatches) through the kernels next to the plain path
+   from the same start with the same noise, once with SGD and once with
+   Adam: the rollout identical; SGD: the loss terms within 1e-3 relative
+   (``pg_loss``, a mean of terms of RMS about 1 that cancel to near 0,
+   within 1e-3 absolute) and every parameter within 1e-5 absolute of the
+   plain path's; Adam (whose steps are about lr whatever the gradient's
+   size, so a sign flip of a near-zero gradient moves a weight by up to
+   2 lr, and the bf16 forward carries that into every later step): the
+   loss terms within 1e-2 (relative; ``pg_loss`` absolute), and the
+   parameters' displacement no further from the plain path's than twice
+   the witness's, the witness being the plain path with the logits'
+   gradient multiplied by 1 +- 1e-6 (random signs); then one clip + Adam
+   step on one minibatch with an fp32 policy: every parameter whose
+   plain gradient exceeds 1e-6 within 1e-2 lr of the plain path's (the
+   witness's reading printed beside); every one of the ten kernels
+   launched; then training env-steps/s at ``PPOConfig(num_envs=1024)``'s
+   defaults (rollout_len 128, or the largest that fits), one warm-up
+   update and the median of two, with the rollout/learn split and the
+   peak memory;
+8. one JSON line of every kernel, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
-Any failure raises and the exit code is not 0.  Without a CUDA device it
-exits with code 2 and prints no result.
+No single PyTorch call computes any kernel's function (the engine, the
+bots and the masked factored categorical are the JAX package's own
+code), so every ``library_ms`` is null.  Any failure raises and the exit
+code is not 0.  Without a CUDA device it exits with code 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -56,8 +87,32 @@ MAX_STEPS = 96           # phase 5: episode cap, so that resets happen
 TIME_TICKS = 200         # phase 5: timed window
 ROLL_STEPS = 16          # phase 6: compared rollout steps
 ROLL_TIME_STEPS = 32     # phase 6: timed rollout
+RUSH_TICKS = 480         # phase 3: plain WorkerRush-vs-LightRush ticks
+RUSH_EVERY = 40          # ... recorded every this many ticks
+RUSH_OPEN = 2            # env k opens with 2 (k % 32) random ticks
+LOGPROB_RECORDS = 4      # phase 4: K7b over 4 x 1024 envs (a minibatch)
+UPDATE_LEN = 16          # phase 7: compared updates' rollout_len
+TRAIN_LEN = 128          # phase 7: timed updates' rollout_len (default)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
-LP_TOL = dict(rtol=1e-5, atol=1e-4)  # sampler logprob / entropy vs plain
+FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+# H100 SXM int32: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (NVIDIA H100
+# Tensor Core GPU Architecture whitepaper), one operation per lane a clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+LP_TOL = dict(rtol=1e-5, atol=1e-4)  # sampler / K7b logprob, entropy
+DLOGITS_TOL = dict(rtol=1e-4, atol=1e-5)  # K7b gradient vs autograd
+SGD_TOL = dict(metrics_rtol=1e-3, params_atol=1e-5)
+# Adam turns a rounding-level change of a near-zero gradient into a step of
+# lr, so its whole update is held against the witness (the plain path with
+# the logits' gradient perturbed by WITNESS_REL, relative, with random
+# signs): the displacement's gap to the plain path's at most twice the
+# witness's.  One Adam step on an fp32 policy (no bf16 rounding between
+# the gradient of the logits and those of the weights) is held as the CPU
+# test holds it against optax: within 1e-2 x lr where |g| > 1e-6.
+WITNESS_REL = 1e-6
+ADAM_TOL = dict(metrics_rtol=1e-2, gap_vs_witness=2.0, step_grad_min=1e-6,
+                step_atol_lr=1e-2)
+ROLLOUT_KERNELS = ("actor", "decode", "issue_env", "cycle", "epilogue",
+                   "splice_obs", "policy_sample")
 
 
 def smi_line() -> str:
@@ -148,23 +203,32 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _no_grad(fn, *args):
+    import torch
+    with torch.no_grad():
+        return fn(*args)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import scripted as S
     from microrts_tpu_torch.bots.scripted import (random_bot,
                                                   random_bot_plain,
                                                   random_opponent)
+    from microrts_tpu_torch.config import RUSH_BOTS, make_bot
     from microrts_tpu_torch.engine.types import (ATTACK, FIELD_DTYPES,
                                                  HARVEST, PRODUCE, RETURN,
                                                  Candidates)
     from microrts_tpu_torch.env.gridnet import GridnetEnv
     from microrts_tpu_torch.env.vec import VecGridnetEnv
     from microrts_tpu_torch.models.gridnet_policy import (
-        ActionSpace, GridnetPolicy, greedy_action_plain, gumbel_noise,
-        sample_action_plain)
+        ActionSpace, GridnetPolicy, action_logprob_plain, greedy_action_plain,
+        gumbel_noise, sample_action_plain)
+    from microrts_tpu_torch.train import optim
     from microrts_tpu_torch.train.ppo import PPOConfig, PPOTrainer
     from microrts_tpu_torch.utils.assets import asset_path
 
@@ -181,8 +245,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     secs = KN.build()
-    print(f"[2] build: {secs:.1f} s for {len(KN.NAMES)} kernels "
-          f"(wall {time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[2] build: {secs:.1f} s for {len(KN.KERNELS)} kernels in "
+          f"{len(KN.NAMES)} sources (wall {time.perf_counter() - t0:.1f} s)",
+          flush=True)
     for name in KN.NAMES:
         for line in KN.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -260,13 +325,42 @@ def main() -> int:
     r["tick"] = f"{r['tick']} (terminal)"
     records.append(r)
 
+    # rush states: plain WorkerRush (player 0) against LightRush (player
+    # 1); env k opens with RUSH_OPEN * (k % 32) ticks of RandomBiasedAI
+    t0 = time.perf_counter()
+    prush = (S.worker_rush(penv), S.light_rush(penv))
+    s = penv.reset(B)
+    opening = (RUSH_OPEN * (torch.arange(B, device=dev) % 32))[
+        :, None, None, None]
+    rush_records = []
+    for tick in range(RUSH_TICKS):
+        if tick % RUSH_EVERY == RUSH_EVERY - 1:
+            rush_records.append(s)
+        a0, a1 = prush[0](s, 0), prush[1](s, 1)
+        if tick < RUSH_OPEN * 31:
+            u0, u1 = uniforms()
+            a0 = torch.where(tick < opening, pbot(s, 0, u0), a0)
+            a1 = torch.where(tick < opening, pbot(s, 1, u1), a1)
+        s, _, _ = penv.step(s, a0, a1)
+    rush_start = s
+    # every base removed, resources raised, in half the envs (rebuilds)
+    base = ((s.utype == kenv.cfg.base_id + 1)
+            & (torch.arange(B, device=dev) % 2 == 0)[:, None, None])
+    rush_records.append(s.replace(utype=torch.where(base, 0, s.utype),
+                                  owner=torch.where(base, -1, s.owner),
+                                  resources=s.resources.clamp(min=20)))
+    torch.cuda.synchronize()
+    print(f"    {RUSH_TICKS} plain WorkerRush-vs-LightRush ticks in "
+          f"{time.perf_counter() - t0:.1f} s; {len(rush_records)} recorded "
+          f"(the last with bases removed)", flush=True)
+
     # the policy: seeded, full width, bf16 activations
     space = ActionSpace(cfg.num_types, 2 * cfg.max_range + 1)
     net = GridnetPolicy(space, 20 + cfg.num_types).init_params(
         torch.Generator().manual_seed(0)).to(dev)
 
     # ---- [4] every kernel against its plain version, on every record
-    errs = {n: 0 for n in KN.NAMES}
+    errs = {k.name: 0 for k in KN.KERNELS}
     terminal = 0
     for r in records:
         for p, st, u, a in ((0, r["s"], r["u0"], r["a0"]),
@@ -330,6 +424,57 @@ def main() -> int:
     torch.cuda.synchronize()
     if terminal == 0:
         raise AssertionError("no terminal env in the recorded inputs")
+
+    # rush: every ported spec and the expansion branch, both players
+    rush_plans = {n: make_bot(n, kenv).bot.plan for n in RUSH_BOTS}
+    rush_plans["expand (Light)"] = S.rush_plan(
+        kenv, S.RushSpec("Light", expand=True))
+    branches = {}
+    for rs in rush_records:
+        for name, plan in rush_plans.items():
+            for p in (0, 1):
+                errs["rush"] = max(errs["rush"], expect_equal(
+                    f"rush {name} p{p}", [("actions", KN.RUSH(cfg, plan, rs, p),
+                                           S.rush_bot_plain(penv, plan, rs, p,
+                                                            branches))]))
+    torch.cuda.synchronize()
+    print(f"    rush: {len(rush_plans)} specs x {len(rush_records)} records "
+          f"x 2 players equal to plain; decisions of the plain version "
+          f"{branches}", flush=True)
+    missing = [b for b in S.RUSH_BRANCHES if not branches.get(b)
+               and not b.startswith("expand")]
+    if missing:
+        raise AssertionError(f"the rush records exercise no {missing}")
+
+    # K7b on the policy's logits over four recorded ticks (a minibatch of
+    # 4096 samples, as phase 7's updates have), upstream weights normal
+    lp_recs = records[::5][:LOGPROB_RECORDS]
+    with torch.no_grad():
+        lg = torch.cat([net(penv.observation_onehot_plain(r["s"], 0))[0]
+                        for r in lp_recs])
+    emask = torch.cat([penv.masks_plain(r["s"], 0) for r in lp_recs])
+    lmask = emask[..., 1:] != 0
+    lact = sample_action_plain(lg, emask, space,
+                               gumbel_noise(lg.shape, gen, dev))[0]
+    del emask
+    w1 = torch.randn(lg.shape[:-1], generator=gen, device=dev)
+    w2 = torch.randn(lg.shape[:-1], generator=gen, device=dev)
+    klp, kent = KN.LOGPROB(space.sizes, lg, lmask, lact)
+    with torch.no_grad():
+        plp, pent = action_logprob_plain(lg, lmask, lact, space)
+    errs["policy_logprob_fwd"] = expect_close("policy_logprob_fwd", [
+        ("logprob", klp, plp), ("entropy", kent, pent)])
+    kd = KN.LOGPROB_BWD(space.sizes, lg, lmask, lact, w1, w2)
+    plg = lg.clone().requires_grad_(True)
+    plp, pent = action_logprob_plain(plg, lmask, lact, space)
+    pobj = (w1 * plp + w2 * pent).sum()
+    pd, = torch.autograd.grad(pobj, plg, retain_graph=True)
+    try:
+        torch.testing.assert_close(kd, pd, **DLOGITS_TOL)
+    except AssertionError as e:
+        raise AssertionError(f"policy_logprob_bwd: {e}") from None
+    errs["policy_logprob_bwd"] = float((kd - pd).abs().max())
+    del kd, pd, klp, kent
     print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
           f"(max |diff| {errs})", flush=True)
 
@@ -406,16 +551,45 @@ def main() -> int:
         lambda: sample_action_plain(r["logits"], r["mask"], space, r["gum"]),
         nbytes(r["logits"], r["mask"], r["gum"],
                *KN.SAMPLE(space.sizes, r["logits"], r["mask"], r["gum"])))
+    # policy_logprob_fwd: logits, mask, actions in; lp, ent out (about 20
+    # flops per logit); policy_logprob_bwd: the same and the two upstream
+    # gradients in, the logits' gradient out (about 40 flops per logit)
+    A = space.total
+    timing["policy_logprob_fwd"] = (
+        lambda: KN.LOGPROB(space.sizes, lg, lmask, lact),
+        lambda: _no_grad(action_logprob_plain, lg, lmask, lact, space),
+        nbytes(lg, lmask, lact, w1, w2), 20 * lg.numel(), FP32_OPS_PER_S)
+    timing["policy_logprob_bwd"] = (
+        lambda: KN.LOGPROB_BWD(space.sizes, lg, lmask, lact, w1, w2),
+        lambda: torch.autograd.grad(pobj, plg, retain_graph=True),
+        nbytes(lg, lmask, lact, w1, w2) + nbytes(lg), 40 * lg.numel(),
+        FP32_OPS_PER_S)
+    # rush (WorkerRush for player 1 on the last rush record): six state
+    # planes and the resources in, the actions out; three fields of
+    # iters = H + W sweeps, ~13 integer operations per cell and sweep
+    rs = rush_records[-1]
+    wr = rush_plans["WorkerRush"]
+    timing["rush"] = (
+        lambda: KN.RUSH(cfg, wr, rs, 1),
+        lambda: S.rush_bot_plain(penv, wr, rs, 1),
+        nbytes(rs.utype, rs.owner, rs.busy, rs.terrain, rs.carried, rs.uid,
+               rs.resources) + B * H * W * 7 * 4,
+        3 * wr.iters * B * H * W * 13, INT32_OPS_PER_S)
+    assert A == lg.shape[-1]
     times = {}
     print("    device time per call (queued; host-paced in brackets):")
-    for name, (kfn, pfn, byts) in timing.items():
+    for name, (kfn, pfn, byts, *ops) in timing.items():
         kms, kpaced = cuda_ms(kfn, n=200)
         pms, ppaced = cuda_ms(pfn, n=20)
         bound = byts / HBM_BYTES_PER_S * 1e3
-        times[name] = (kms, pms, bound, byts)
-        print(f"    {name:13s} kernel {kms * 1e3:8.2f} ({kpaced * 1e3:8.2f}) us"
-              f"  plain {pms * 1e3:9.2f} ({ppaced * 1e3:9.2f}) us  bound "
-              f"{bound * 1e3:6.2f} us ({byts / 1e6:.2f} MB)", flush=True)
+        op_bound = ops[0] / ops[1] * 1e3 if ops else 0.0
+        by = "operations" if op_bound > bound else "bytes"
+        times[name] = (kms, pms, max(bound, op_bound), byts, by)
+        print(f"    {name:18s} kernel {kms * 1e3:8.2f} ({kpaced * 1e3:8.2f}) "
+              f"us  plain {pms * 1e3:9.2f} ({ppaced * 1e3:9.2f}) us  bound "
+              f"{max(bound, op_bound) * 1e3:6.2f} us by {by} "
+              f"({byts / 1e6:.2f} MB)", flush=True)
+    del lg, lmask, lact, plg, plp, pent, pobj
 
     # ---- [5] the main path through the kernels, next to the plain path
     kvec = VecGridnetEnv(kenv, B, max_steps=MAX_STEPS)
@@ -440,10 +614,11 @@ def main() -> int:
             ("rewards", krew, prew), ("dones", kdn, pdn),
             ("reset_mask", krm, prm)])
         resets += int(krm.sum())
-    counts = {k.name: k.launches for k in KN.KERNELS}
+    counts = KN.counts()
     torch.cuda.synchronize()
     want = dict(actor=2, decode=2, issue_env=2, cycle=1, epilogue=1,
-                splice_obs=1, policy_sample=0)
+                splice_obs=1, policy_sample=0, policy_logprob_fwd=0,
+                policy_logprob_bwd=0, rush=0)
     if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
@@ -502,11 +677,13 @@ def main() -> int:
         expect_close(f"rollout step {t}", [("logprob", ktj.logprob,
                                             ptj.logprob)])
         roll_resets += int(ktj.done.sum())
-    roll_counts = {k.name: k.launches for k in KN.KERNELS}
+    roll_counts = KN.counts()
     torch.cuda.synchronize()
-    if min(roll_counts.values()) == 0:
-        raise AssertionError(f"a kernel was not launched by the rollout: "
-                             f"{roll_counts}")
+    if (any(roll_counts[n] == 0 for n in ROLLOUT_KERNELS)
+            or any(v for n, v in roll_counts.items()
+                   if n not in ROLLOUT_KERNELS)):
+        raise AssertionError(f"the rollout launched {roll_counts}; want "
+                             f"each of {ROLLOUT_KERNELS} and no other")
     if roll_resets == 0:
         raise AssertionError("no env reset during the rollout")
     print(f"[6] rollout: {ROLL_STEPS} steps identical to the plain path "
@@ -538,16 +715,242 @@ def main() -> int:
           f"{rsps_plain:.1f} (B={B}, 16x16, bf16 policy 64x4, "
           f"{ROLL_TIME_STEPS} steps; {kind}, {smi})", flush=True)
 
-    # ---- [7] results
+    # ---- [7] training: PPOTrainer.update through the kernels next to the
+    # plain path, from the same mid-game rush state with the same noise;
+    # beside them the witness, the plain path with the logits' gradient
+    # perturbed by WITNESS_REL (what a rounding-level change of K7b's
+    # output does to an update)
+    t0 = time.perf_counter()
+    ucfg = PPOConfig(num_envs=B, rollout_len=UPDATE_LEN, max_steps=MAX_STEPS)
+    net_sd = {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+    def trainer(env, tx_name, dtype=torch.bfloat16, witness=False):
+        tx = optim.chain(optim.clip_by_global_norm(ucfg.max_grad_norm),
+                         optim.sgd(ucfg.lr) if tx_name == "SGD"
+                         else optim.adam(ucfg.lr))
+        model = GridnetPolicy(space, 20 + cfg.num_types, dtype=dtype)
+        model.load_state_dict(net_sd)
+        if witness:
+            wgen = torch.Generator(device=dev)
+            wgen.manual_seed(13)
+            forward = model.forward
+
+            def perturbed(obs):
+                logits, value = forward(obs)
+                if logits.requires_grad:
+                    logits.register_hook(lambda d: d * (1 + WITNESS_REL * (
+                        torch.randint(0, 2, d.shape, generator=wgen,
+                                      device=dev, dtype=d.dtype) * 2 - 1)))
+                return logits, value
+
+            model.forward = perturbed
+        return PPOTrainer(env, ucfg, opponent=make_bot("WorkerRush", env),
+                          model=model, tx=tx)
+
+    def param_gap(got, ref):
+        """How far parameters ``got`` are from ``ref`` (both moved from
+        ``net_sd``): (max |diff|, its description)."""
+        diff = torch.cat([(got[k] - ref[k]).abs().flatten() for k in ref])
+        moved = torch.cat([(ref[k] - net_sd[k]).flatten() for k in ref])
+        gmoved = torch.cat([(got[k] - net_sd[k]).flatten() for k in ref])
+        gap = float((gmoved - moved).norm() / moved.norm())
+        cos = float(torch.dot(gmoved, moved)
+                    / (gmoved.norm() * moved.norm()))
+        q = torch.quantile(diff[:1 << 24].float(),
+                           torch.tensor([0.5, 0.99, 0.999], device=dev))
+        return float(diff.max()), gap, (
+            f"max |diff| {float(diff.max()):.3g}, quantiles 50/99/99.9% "
+            f"{[float(v) for v in q]}, share within 1e-5 "
+            f"{float((diff <= 1e-5).float().mean()):.6f}, displacement "
+            f"differs by {gap:.3g} of its norm, cosine {cos:.6f}")
+
+    def update_pair(tx_name):
+        out = {}
+        for name, env in (("kernel", kenv), ("plain", penv),
+                          ("witness", penv)):
+            tr = trainer(env, tx_name, witness=name == "witness")
+            ts = tr.init(seed=None)
+            ts.env_states, ts.env_steps = rush_start.clone(), steps0.clone()
+            g = torch.Generator(device=dev)
+            g.manual_seed(11)
+            trajs = []
+            roll = tr._rollout
+            tr._rollout = (lambda *a, **k:
+                           trajs.append(roll(*a, **k)) or trajs[-1])
+            KN.reset_counts()
+            ts2, m = tr.update(ts, gen=g)
+            torch.cuda.synchronize()
+            out[name] = (ts2, m, trajs[0], tr.model.state_dict(),
+                         KN.counts())
+        (kts, km, kroll, kp, kc), (pts, pm, proll, pp, pc) = (
+            out["kernel"], out["plain"])
+        (_, ktj, klast, kwins), (_, ptj, plast, pwins) = kroll, proll
+        expect_equal(f"{tx_name} update rollout", state_pairs(
+            kts.env_states, pts.env_states) + [
+            ("steps", kts.env_steps, pts.env_steps)] + [
+            (f, getattr(ktj, f), getattr(ptj, f)) for f in (
+                "obs", "mask", "action", "value", "reward", "done")] + [
+            ("last value", klast, plast), ("wins", kwins, pwins)])
+        expect_close(f"{tx_name} update rollout",
+                     [("logprob", ktj.logprob, ptj.logprob)])
+        for k in ("mean_reward", "episodes", "wins"):
+            if not torch.equal(km[k], pm[k]):
+                raise AssertionError(f"{tx_name} update: {k} {km[k]} vs "
+                                     f"plain {pm[k]}")
+        tol = SGD_TOL if tx_name == "SGD" else ADAM_TOL
+        for k in ("pg_loss", "v_loss", "entropy", "ratio"):
+            # pg_loss is a mean of terms of RMS about 1 (the advantages are
+            # normalised) that cancel to near 0: held against that scale
+            scale = 1.0 if k == "pg_loss" else abs(float(pm[k]))
+            err = abs(float(km[k]) - float(pm[k]))
+            if not err <= tol["metrics_rtol"] * scale:
+                raise AssertionError(f"{tx_name} update: {k} {float(km[k])}"
+                                     f" vs plain {float(pm[k])}")
+        pmax, gap, detail = param_gap(kp, pp)
+        _, wgap, wdetail = param_gap(out["witness"][3], pp)
+        if tx_name == "SGD":
+            ok = pmax <= tol["params_atol"]
+        else:
+            ok = gap <= tol["gap_vs_witness"] * wgap
+        if not ok or not all(torch.isfinite(v).all() for v in kp.values()):
+            raise AssertionError(f"{tx_name} update: parameters differ from "
+                                 f"the plain path's: {detail}; witness: "
+                                 f"{wdetail}")
+        if any(kc[k.name] == 0 for k in KN.KERNELS) or any(pc.values()):
+            raise AssertionError(f"{tx_name} update launched {kc}, plain "
+                                 f"{pc}")
+        steps_done = ucfg.epochs * ucfg.minibatches
+        want = dict(rush=UPDATE_LEN, policy_logprob_fwd=steps_done,
+                    policy_logprob_bwd=steps_done,
+                    policy_sample=UPDATE_LEN, epilogue=UPDATE_LEN)
+        if any(kc[n] != v for n, v in want.items()):
+            raise AssertionError(f"{tx_name} update launched {kc}, want "
+                                 f"{want}")
+        terms = ("pg_loss", "v_loss", "entropy", "ratio")
+        print(f"    {tx_name} update: rollout identical, "
+              f"{int(ptj.done.sum())} resets; loss terms "
+              f"{ {k: float(km[k]) for k in terms} } (plain "
+              f"{[float(pm[k]) for k in terms]}); parameters: {detail}; "
+              f"witness (plain, logits' gradient x (1 +- {WITNESS_REL})): "
+              f"{wdetail}; launches {kc}", flush=True)
+        return kc, ktj, klast
+
+    def adam_step(traj, last):
+        """One clip + Adam step on minibatch 0 of ``traj``, fp32 model,
+        through the kernels, the plain path and the witness."""
+        out = {}
+        for name, env in (("kernel", kenv), ("plain", penv),
+                          ("witness", penv)):
+            tr = trainer(env, "Adam", torch.float32, name == "witness")
+            adv_n, ret = tr.advantages(traj, last)
+            KN.reset_counts()
+            _, _, grads = tr.step(traj, adv_n, ret, 0,
+                                  tr.tx.init(tr.params()))
+            torch.cuda.synchronize()
+            out[name] = ([p.detach() for p in tr.params()], grads,
+                         KN.counts())
+        pp, pg, pc = out["plain"]
+        lr, res = ucfg.lr, {}
+        for name in ("kernel", "witness"):
+            got, gg, _ = out[name]
+            big = torch.cat([(g.abs() > ADAM_TOL["step_grad_min"]).flatten()
+                             for g in pg])
+            diff = torch.cat([(a - b).abs().flatten()
+                              for a, b in zip(got, pp)])
+            gdiff = torch.cat([(a - b).abs().flatten()
+                               for a, b in zip(gg, pg)])
+            res[name] = (float(diff[big].max()) / lr, float(diff.max()) / lr,
+                         int((diff[big] > ADAM_TOL["step_atol_lr"] * lr)
+                             .sum()), float(gdiff.max()),
+                         float(big.float().mean()))
+        kc = out["kernel"][2]
+        if (kc["policy_logprob_fwd"] != 1 or kc["policy_logprob_bwd"] != 1
+                or any(pc.values())):
+            raise AssertionError(f"Adam step launched {kc}, plain {pc}")
+        text = {n: (f"max |diff| / lr {r[0]:.3g} where |g| > "
+                    f"{ADAM_TOL['step_grad_min']} ({r[4]:.4f} of the "
+                    f"parameters), {r[1]:.3g} anywhere, {r[2]} beyond "
+                    f"{ADAM_TOL['step_atol_lr']} lr; gradients' max |diff| "
+                    f"{r[3]:.3g}") for n, r in res.items()}
+        kr = res["kernel"]
+        if not kr[0] <= ADAM_TOL["step_atol_lr"]:
+            raise AssertionError(f"Adam step: parameters differ from the "
+                                 f"plain path's: {text['kernel']}")
+        print(f"    Adam step (fp32 policy, minibatch 0): {text['kernel']}; "
+              f"witness: {text['witness']}", flush=True)
+
+    upd_counts, *_ = update_pair("SGD")
+    _, atraj, alast = update_pair("Adam")
+    adam_step(atraj, alast)
+    print(f"[7] training: two updates (rollout_len {UPDATE_LEN}, "
+          f"{ucfg.epochs}x{ucfg.minibatches} minibatches, WorkerRush) and "
+          f"an Adam step next to the plain path "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def train_rate(T):
+        tcfg = PPOConfig(num_envs=B, rollout_len=T)
+        model = GridnetPolicy(space, 20 + cfg.num_types)
+        model.load_state_dict(net.state_dict())
+        tr = PPOTrainer(kenv, tcfg, opponent=make_bot("WorkerRush", kenv),
+                        model=model)
+        ts = tr.init(seed=None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(3):
+            mark = {}
+
+            def ev(name):
+                if name == "rollout":
+                    torch.cuda.synchronize()
+                    mark["rollout"] = time.perf_counter()
+
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ts, m = tr.update(ts, ev=ev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if not all(torch.isfinite(v).all() for v in m.values()):
+                raise AssertionError(f"non-finite training metrics {m}")
+            runs.append((t2 - t1, mark["rollout"] - t1, t2 - mark["rollout"],
+                         {k: float(v) for k, v in m.items()}))
+        return runs, torch.cuda.max_memory_allocated()
+
+    T = TRAIN_LEN
+    while True:
+        try:
+            runs, peak = train_rate(T)
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            print(f"    rollout_len {T} does not fit in device memory",
+                  flush=True)
+            if T <= UPDATE_LEN:
+                raise
+            T //= 2
+    timed = sorted(runs[1:])
+    sec = (timed[0][0] + timed[1][0]) / 2
+    roll_s = (timed[0][1] + timed[1][1]) / 2
+    learn_s = (timed[0][2] + timed[1][2]) / 2
+    print(f"    training env-steps/s/card: {B * T / sec:.1f} (B={B}, 16x16, "
+          f"rollout_len {T}, 4 epochs x 4 minibatches, WorkerRush, bf16 "
+          f"policy 64x4, Adam; median of 2 updates after a warm-up: "
+          f"{sec:.3f} s per update = rollout {roll_s:.3f} s + learn "
+          f"{learn_s:.3f} s; peak device memory {peak / 2**30:.2f} GiB; "
+          f"metrics {runs[-1][3]}; {kind}, {smi})", flush=True)
+
+    # ---- [8] results
     kernels = []
     for k in KN.KERNELS:
-        kms, pms, bound, byts = times[k.name]
+        kms, pms, bound, byts, by = times[k.name]
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
-            source=k.source,
-            replaces=k.replaces, launches=roll_counts[k.name],
+            source=k.source, replaces=k.replaces,
+            launches=upd_counts[k.name],
+            launches_by_phase={"5": counts[k.name], "6": roll_counts[k.name],
+                               "7": upd_counts[k.name]},
             max_abs_err=errs[k.name], ms=kms, plain_ms=pms, bound_ms=bound,
-            bound_by="bytes", library_ms=None))
+            bound_by=by, library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

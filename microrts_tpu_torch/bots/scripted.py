@@ -1,22 +1,29 @@
 """Scripted bots on batched planes (port of ``microrts_tpu.bots.scripted``:
-``passive_bot`` and ``random_bot``).
+``passive_bot``, ``random_bot`` and the ``rush_bot`` family).
 
 A bot is ``bot(state, player, u) -> int32 [B, H, W, 7]`` gridnet actions.
 Its randomness comes in as ``u``, float32 uniforms in [0, 1) of shape
 ``[B, H, W, 2]`` made by the caller (e.g. with a ``torch.Generator``), so
-the same draws can be fed to the JAX package in tests.
+the same draws can be fed to the JAX package in tests.  The rush bots are
+deterministic and take no uniforms.
+
+Not ported yet: ``random_biased_single_unit_bot``, the partially
+observable ``po_*`` rushes (they need the fog of war, ROADMAP queue 1
+item 9) and ``distribution_bot``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from .. import kernels as KN
-from ..engine.types import State
+from ..engine.kernel import pull, shift
+from ..engine.types import ATTACK, HARVEST, INF, MOVE, PRODUCE, RETURN, State
 from ..env.gridnet import GridnetEnv
+from ..ops.fields import descend_direction_plain, distance_field_plain
 
 I32 = torch.int32
 
@@ -108,3 +115,375 @@ def random_bot_plain(env: GridnetEnv, state: State, player: int,
     ak = pick(m["attack"])
     out = torch.stack([at, mv, hv, rt, pj // T, pj % T, ak], -1)
     return torch.where(m["can_act"][..., None], out, 0).to(I32)
+
+
+def passive_opponent(env: GridnetEnv) -> Opponent:
+    """PassiveAI as an opponent: no draws."""
+    return Opponent(passive_bot(env), 0)
+
+
+# ----------------------------------------------------------------------
+# the rush family (K10, with K9's fields inside)
+
+EXPAND_RADIUS = 8   # BasicConfigurableScript.java:46 BASE_RESOURCE_RADIUS
+# the decisions of ``rush_bot_plain``, in the order they are taken
+RUSH_BRANCHES = ("train_worker", "train_combat", "rebuild_base", "return",
+                 "move_home", "harvest", "move_to_resource", "build_barracks",
+                 "expand_build", "expand_move", "attack", "move_to_enemy")
+
+
+@dataclasses.dataclass(frozen=True)
+class RushSpec:
+    """Behaviour spec of the whole scripted-bot variant family
+    (ai/abstraction/*.java); the defaults are plain WorkerRush.  Field
+    meanings as in the JAX package (scripted.py:127): ``combat_type``
+    Worker | Light | Heavy | Ranged | Mixed (the first affordable of
+    Light > Ranged > Heavy); ``n_harvesters`` (-1: every worker
+    harvests); ``defense_frac`` (> 0: engage only within ``H *
+    defense_frac`` path steps of an enemy or the own base);
+    ``rebuild_base``; ``max_workers`` (0: unlimited); ``expand``."""
+    combat_type: str = "Worker"
+    n_harvesters: int = 1
+    defense_frac: float = 0.0
+    rebuild_base: bool = False
+    max_workers: int = 0
+    expand: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class RushPlan:
+    """A ``RushSpec`` resolved against one env's unit type table: the
+    integers the ``rush`` kernel takes, shared with the plain version."""
+    iters: int
+    need_barracks: int
+    mixed: int
+    combat_id: int
+    n_harvesters: int
+    max_workers: int
+    rebuild_base: int
+    expand: int
+    expand_radius: int
+    defense: int
+    defense_thresh: int
+    worker_id: int
+    base_id: int
+    barracks_id: int
+    ladder: Tuple[int, ...]                 # mixed: light, ranged, heavy
+    offsets: Tuple[Tuple[int, int], ...]    # attack scan (dx, dy)
+
+
+def rush_plan(env: GridnetEnv, spec: RushSpec = RushSpec()) -> RushPlan:
+    cfg = env.cfg
+    R = cfg.engine.max_range
+    mixed = spec.combat_type == "Mixed"
+    ladder = tuple(t for t in (cfg.light_id, cfg.ranged_id, cfg.heavy_id)
+                   if t >= 0) if mixed else ()
+    if mixed and not ladder:
+        raise ValueError("a Mixed rush needs a Light, Ranged or Heavy type")
+    # closest first, stable over the dy-outer, dx-inner order
+    # (scripted.py:341-343); the unit's own cell is skipped
+    offs = sorted(((dx * dx + dy * dy, dx, dy) for dy in range(-R, R + 1)
+                   for dx in range(-R, R + 1)), key=lambda z: z[0])
+    return RushPlan(
+        iters=env.h + env.w,
+        need_barracks=int(spec.combat_type != "Worker"
+                          and cfg.barracks_id >= 0),
+        mixed=int(mixed),
+        combat_id=-1 if mixed else getattr(
+            cfg, f"{spec.combat_type.lower()}_id"),
+        n_harvesters=spec.n_harvesters, max_workers=spec.max_workers,
+        rebuild_base=int(spec.rebuild_base), expand=int(spec.expand),
+        expand_radius=EXPAND_RADIUS, defense=int(spec.defense_frac > 0.0),
+        defense_thresh=int(env.h * spec.defense_frac),
+        worker_id=cfg.worker_id, base_id=cfg.base_id,
+        barracks_id=cfg.barracks_id, ladder=ladder,
+        offsets=tuple((dx, dy) for d2, dx, dy in offs if d2 > 0))
+
+
+def rush_bot(env: GridnetEnv, spec: RushSpec = RushSpec()):
+    """WorkerRush / LightRush / HeavyRush / RangedRush and the variant
+    family (scripted.py:190): base trains workers, a worker builds a
+    barracks that trains the combat type, the lowest-uid workers harvest,
+    every other combat-capable unit attacks in range or walks down the
+    enemy distance field.  On CUDA tensors this is the ``rush`` kernel."""
+    plan = rush_plan(env, spec)
+
+    def bot(state: State, player: int, u=None) -> torch.Tensor:
+        if env.engine._use_kernel(state.utype):
+            return KN.RUSH(env.cfg.engine, plan, state, player)
+        return rush_bot_plain(env, plan, state, player)
+
+    bot.plan = plan
+    return bot
+
+
+def rush_opponent(env: GridnetEnv, spec: RushSpec = RushSpec()) -> Opponent:
+    """A rush bot as the PPO trainer's opponent: deterministic, no
+    draws."""
+    return Opponent(rush_bot(env, spec), 0)
+
+
+def rush_bot_plain(env: GridnetEnv, plan: RushPlan, state: State,
+                   player: int, counts: Optional[Dict[str, int]] = None
+                   ) -> torch.Tensor:
+    """scripted.py:221-358 in PyTorch, batched over the leading axis.
+    With ``counts``, each decision adds the number of cells it sets under
+    its name (``RUSH_BRANCHES``)."""
+    eng = env.engine
+    ecfg = env.cfg.engine
+    B, H, W = state.utype.shape
+    R = ecfg.max_range
+    D = 2 * R + 1
+    dev = state.utype.device
+    cost = ecfg.cost
+    me = int(player)
+    t = (state.utype.long() - 1).clamp(0, ecfg.num_types - 1)
+
+    def lk(name):
+        return eng.lut(name, dev)[t]
+
+    exists = state.utype > 0
+    mine = exists & (state.owner == me)
+    idle = mine & ~state.busy
+    enemy = exists & (state.owner >= 0) & (state.owner != me)
+    resource = exists & lk("is_resource")
+    my_base = mine & lk("is_stockpile")
+    my_barracks = (mine & (t == plan.barracks_id) if plan.need_barracks
+                   else torch.zeros_like(mine))
+    passable = (state.terrain == 0) & ~exists
+    free_n = torch.stack([pull(passable, d, fill=False) for d in range(4)], -1)
+    any_free = free_n.any(-1)
+    d_enemy = distance_field_plain(enemy, passable, plan.iters)
+    d_res = distance_field_plain(resource, passable, plan.iters)
+    d_base = distance_field_plain(my_base, passable, plan.iters)
+    balance = state.resources[:, 1 if me == 1 else 0][:, None, None]
+
+    def per_env(x):
+        return x[:, None, None]
+
+    out = torch.zeros((B, H, W, 7), dtype=torch.int32, device=dev)
+
+    def put(name, mask, atype, **cols):
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + int(mask.sum())
+        _set(out, mask, atype, **cols)
+
+    # base: train workers (capped by max_workers)
+    worker = mine & lk("can_harvest")
+    train_w = (idle & my_base & (plan.worker_id >= 0)
+               & (balance >= cost[max(plan.worker_id, 0)]) & any_free)
+    if plan.max_workers > 0:
+        train_w &= per_env(worker.sum((1, 2)) < plan.max_workers)
+    tdir = first_true(free_n)
+    put("train_worker", train_w, PRODUCE, pdir=tdir, ptype=plan.worker_id)
+
+    # barracks: the combat type ("Mixed": the first affordable of the
+    # ladder, else its last entry)
+    if plan.need_barracks:
+        if plan.mixed:
+            ctype = torch.full_like(balance, plan.ladder[-1])
+            can_aff = torch.zeros_like(balance, dtype=torch.bool)
+            for tid in reversed(plan.ladder):
+                ok = balance >= cost[tid]
+                ctype = torch.where(ok, tid, ctype)
+                can_aff = can_aff | ok
+            train_c = idle & my_barracks & can_aff & any_free
+        else:
+            ctype = plan.combat_id
+            train_c = (idle & my_barracks
+                       & (balance >= cost[max(plan.combat_id, 0)]) & any_free)
+        put("train_combat", train_c, PRODUCE, pdir=tdir, ptype=ctype)
+
+    # base rebuild: the oldest worker rebuilds a lost base
+    harv_rank = _rank_by_uid(worker, state.uid)
+    build_base = torch.zeros_like(worker)
+    if plan.rebuild_base and plan.base_id >= 0:
+        base_pend = (per_env(~my_base.any(-1).any(-1))
+                     & (balance >= cost[plan.base_id]))
+        build_base = idle & worker & (harv_rank == 0) & base_pend & any_free
+        put("rebuild_base", build_base, PRODUCE, pdir=tdir, ptype=plan.base_id)
+
+    # harvesters: the lowest-uid workers run the harvest loop
+    all_harvest = plan.n_harvesters < 0
+    is_harv = worker if all_harvest else worker & (
+        harv_rank < plan.n_harvesters)
+    hu = idle & is_harv & ~build_base
+    adj_res = torch.stack([pull(resource, d, fill=False) for d in range(4)],
+                          -1)
+    adj_base = torch.stack([pull(my_base, d, fill=False) for d in range(4)],
+                           -1)
+    carrying = state.carried > 0
+    put("return", hu & carrying & adj_base.any(-1), RETURN,
+        rdir=first_true(adj_base))
+    mdir_b = descend_direction_plain(d_base, free_n)
+    put("move_home", hu & carrying & ~adj_base.any(-1) & (mdir_b >= 0),
+        MOVE, mdir=mdir_b)
+    put("harvest", hu & ~carrying & adj_res.any(-1), HARVEST,
+        hdir=first_true(adj_res))
+    mdir_r = descend_direction_plain(d_res, free_n)
+    put("move_to_resource", hu & ~carrying & ~adj_res.any(-1)
+        & (mdir_r >= 0), MOVE, mdir=mdir_r)
+
+    # builder: the first idle worker after the harvesters builds a
+    # barracks (when every worker harvests, the oldest one)
+    special_rank = 0 if all_harvest else plan.n_harvesters
+    if plan.need_barracks:
+        build = (idle & worker & (harv_rank == special_rank)
+                 & per_env(~my_barracks.any(-1).any(-1))
+                 & (balance >= cost[max(plan.barracks_id, 0)]) & any_free)
+        put("build_barracks", build, PRODUCE, pdir=tdir, ptype=plan.barracks_id)
+        fighter_min_rank = plan.n_harvesters + 1
+    else:
+        fighter_min_rank = plan.n_harvesters
+    if all_harvest:
+        fighter_min_rank = 1 << 30   # harvesting workers never fight
+
+    # expansion: a second base next to the nearest resource far from the
+    # own bases, once a barracks stands and at most one base is owned
+    if plan.expand and plan.base_id >= 0:
+        far_res = resource & (d_base > plan.expand_radius)
+        d_far = distance_field_plain(far_res, passable, plan.iters)
+        want = per_env(my_barracks.any(-1).any(-1)
+                       & (my_base.sum((1, 2)) <= 1)
+                       & far_res.any(-1).any(-1)) \
+            & (balance >= cost[plan.base_id])
+        expander = (idle & worker & (harv_rank == special_rank) & want
+                    & ~build_base)
+        adj_far = torch.stack([pull(far_res, d, fill=False)
+                               for d in range(4)], -1)
+        exp_build = expander & adj_far.any(-1) & any_free
+        put("expand_build", exp_build, PRODUCE, pdir=tdir, ptype=plan.base_id)
+        mdir_x = descend_direction_plain(d_far, free_n)
+        put("expand_move", expander & ~exp_build & (mdir_x >= 0), MOVE,
+            mdir=mdir_x)
+
+    # fighters: attack in range, else move toward the nearest enemy
+    fighter = (idle & mine & lk("can_attack")
+               & (~worker | (harv_rank >= fighter_min_rank)))
+    if plan.defense:
+        # a unit's own cell is occupied: its distance is 1 + the least of
+        # its neighbours'
+        d_en_here = torch.stack([pull(d_enemy, d, fill=INF)
+                                 for d in range(4)]).min(0).values + 1
+        d_ba_here = torch.stack([pull(d_base, d, fill=INF)
+                                 for d in range(4)]).min(0).values + 1
+        fighter &= ((d_en_here < plan.defense_thresh)
+                    | (d_ba_here < plan.defense_thresh))
+    rng = lk("attack_range")
+    best = torch.zeros((B, H, W), dtype=torch.int32, device=dev)
+    found = torch.zeros_like(enemy)
+    for dx, dy in plan.offsets:
+        e_at = shift(enemy, -dx, -dy, fill=False) & (dx * dx + dy * dy
+                                                     <= rng * rng)
+        best = torch.where(~found & e_at, (R + dy) * D + (R + dx), best)
+        found = found | e_at
+    put("attack", fighter & found, ATTACK, rel=best)
+    mdir_e = descend_direction_plain(d_enemy, free_n)
+    put("move_to_enemy", fighter & ~found & (mdir_e >= 0), MOVE,
+        mdir=mdir_e)
+    return out
+
+
+def first_true(b: torch.Tensor) -> torch.Tensor:
+    """``argmax`` of a bool stack over its last axis: the first True, 0
+    when none."""
+    return b.to(torch.uint8).argmax(-1).to(I32)
+
+
+def _rank_by_uid(mask: torch.Tensor, uid: torch.Tensor) -> torch.Tensor:
+    """Rank of each masked cell by ascending unit id (0 = oldest unit),
+    per env."""
+    B = mask.shape[0]
+    key = torch.where(mask, uid, 1 << 30).reshape(B, -1)
+    order = torch.argsort(key, dim=-1, stable=True)
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(key.shape[1], device=key.device)
+                  .expand_as(order).contiguous())
+    return rank.reshape(mask.shape).to(I32)
+
+
+_COLS = dict(mdir=1, hdir=2, rdir=3, pdir=4, ptype=5, rel=6)
+
+
+def _set(out: torch.Tensor, mask: torch.Tensor, atype: int, **cols) -> None:
+    """Where ``mask``: the action type and the given columns (in place;
+    the other columns keep what an earlier decision wrote)."""
+    out[..., 0] = torch.where(mask, atype, out[..., 0])
+    for name, val in cols.items():
+        c = _COLS[name]
+        out[..., c] = torch.where(mask, val, out[..., c])
+
+
+def worker_rush(env):  # WorkerRush.java
+    return rush_bot(env, RushSpec("Worker"))
+
+
+def light_rush(env):   # LightRush.java
+    return rush_bot(env, RushSpec("Light"))
+
+
+def heavy_rush(env):   # HeavyRush.java
+    return rush_bot(env, RushSpec("Heavy"))
+
+
+def ranged_rush(env):  # RangedRush.java
+    return rush_bot(env, RushSpec("Ranged"))
+
+
+# the defense family (ai/abstraction/{Worker,Light,Heavy,Ranged}Defense
+# .java): rush behaviour with the H/2 engage standoff
+def worker_defense(env):
+    return rush_bot(env, RushSpec("Worker", defense_frac=0.5))
+
+
+def light_defense(env):
+    return rush_bot(env, RushSpec("Light", defense_frac=0.5))
+
+
+def heavy_defense(env):
+    return rush_bot(env, RushSpec("Heavy", defense_frac=0.5))
+
+
+def ranged_defense(env):
+    return rush_bot(env, RushSpec("Ranged", defense_frac=0.5))
+
+
+# the economy family (see the JAX package's docstrings for each Java
+# source; EMRDeterministico coincides with EconomyMilitaryRush, and
+# EconomyRushBurster's uniform military pick is the affordability ladder)
+ECONOMY = RushSpec("Mixed", n_harvesters=-1, max_workers=4,
+                   rebuild_base=True)
+
+
+def worker_rush_plus_plus(env):   # WorkerRushPlusPlus.java
+    return rush_bot(env, RushSpec("Worker", rebuild_base=True))
+
+
+def economy_rush(env):            # EconomyRush.java:48-60
+    return rush_bot(env, ECONOMY)
+
+
+def economy_military_rush(env):   # EconomyMilitaryRush.java
+    return rush_bot(env, ECONOMY)
+
+
+def emr_deterministico(env):      # EMRDeterministico.java:153-160
+    return rush_bot(env, ECONOMY)
+
+
+def economy_rush_burster(env):    # EconomyRushBurster.java
+    return rush_bot(env, dataclasses.replace(ECONOMY, max_workers=6))
+
+
+def simple_economy_rush(env):     # SimpleEconomyRush.java:145
+    return rush_bot(env, dataclasses.replace(ECONOMY, max_workers=3))
+
+
+def crush_v1(env):                # CRush_V1.java:383-415
+    return rush_bot(env, RushSpec("Ranged", n_harvesters=-1, max_workers=5,
+                                  rebuild_base=True))
+
+
+def crush_v2(env):                # CRush_V2.java:154
+    return rush_bot(env, RushSpec("Ranged", n_harvesters=2,
+                                  rebuild_base=True))

@@ -1,0 +1,118 @@
+"""Bot registry of the port: Java class names and short names -> bots.
+
+A copy of ``microrts_tpu.config``'s ``JAVA_AI_ALIASES`` (the reflective
+instantiation analog of GameSettings/Game.java:44-50) and of ``make_bot``
+for the bots the port has.  ``make_bot`` returns a
+``bots.scripted.Opponent``: the bot and the number of uniforms it draws
+per cell.  A name the JAX package knows but the port has not ported raises
+``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+JAVA_AI_ALIASES = {
+    "ai.abstraction.WorkerRush": "WorkerRush",
+    "ai.abstraction.LightRush": "LightRush",
+    "ai.abstraction.HeavyRush": "HeavyRush",
+    "ai.abstraction.RangedRush": "RangedRush",
+    "ai.RandomBiasedAI": "RandomBiasedAI",
+    "ai.RandomAI": "RandomAI",
+    "ai.PassiveAI": "PassiveAI",
+    "ai.abstraction.partialobservability.POWorkerRush": "POWorkerRush",
+    "ai.abstraction.partialobservability.POLightRush": "POLightRush",
+    "ai.abstraction.partialobservability.POHeavyRush": "POHeavyRush",
+    "ai.abstraction.partialobservability.PORangedRush": "PORangedRush",
+    "ai.montecarlo.MonteCarlo": "MonteCarlo",
+    "ai.mcts.naivemcts.NaiveMCTS": "NaiveMCTS",
+    "ai.mcts.uct.UCT": "UCT",
+    "ai.mcts.uct.DownsamplingUCT": "DownsamplingUCT",
+    "ai.mcts.informedmcts.InformedNaiveMCTS": "InformedNaiveMCTS",
+    "ai.mcts.mlps.MLPSMCTS": "MLPSMCTS",
+    "ai.mcts.naivemcts.TwoPhaseNaiveMCTS": "TwoPhaseNaiveMCTS",
+    "ai.mcts.uct.UCTFirstPlayUrgency": "UCTFirstPlayUrgency",
+    "ai.mcts.uct.UCTUnitActions": "UCTUnitActions",
+    "ai.RandomBiasedSingleUnitAI": "RandomBiasedSingleUnitAI",
+    "ai.stochastic.UnitActionProbabilityDistributionAI":
+        "UnitActionProbabilityDistributionAI",
+    "ai.montecarlo.lsi.LSI": "LSI",
+    "ai.puppet.PuppetSearchAB": "PuppetSearchAB",
+    "ai.puppet.PuppetSearchMCTS": "PuppetSearchMCTS",
+    "ai.puppet.PuppetNoPlan": "PuppetNoPlan",
+    "ai.scv.SCV": "SCV",
+    "ai.ahtn.AHTNAI": "AHTN",
+    "ai.mcts.believestatemcts.BS1_NaiveMCTS": "BS1_NaiveMCTS",
+    "ai.mcts.believestatemcts.BS2_NaiveMCTS": "BS2_NaiveMCTS",
+    "ai.mcts.believestatemcts.BS3_NaiveMCTS": "BS3_NaiveMCTS",
+    "ai.minimax.ABCD.ABCD": "ABCD",
+    "ai.minimax.ABCD.IDABCD": "IDABCD",
+    "ai.minimax.RTMiniMax.RTMinimax": "RTMinimax",
+    "ai.minimax.RTMiniMax.IDRTMinimax": "IDRTMinimax",
+    "ai.portfolio.PortfolioAI": "PortfolioAI",
+    "ai.portfolio.portfoliogreedysearch.PGSAI": "PGSAI",
+    "ai.abstraction.WorkerDefense": "WorkerDefense",
+    "ai.abstraction.LightDefense": "LightDefense",
+    "ai.abstraction.HeavyDefense": "HeavyDefense",
+    "ai.abstraction.RangedDefense": "RangedDefense",
+    "ai.abstraction.WorkerRushPlusPlus": "WorkerRushPlusPlus",
+    "ai.abstraction.EconomyRush": "EconomyRush",
+    "ai.abstraction.EconomyMilitaryRush": "EconomyMilitaryRush",
+    "ai.abstraction.EMRDeterministico": "EMRDeterministico",
+    "ai.abstraction.EconomyRushBurster": "EconomyRushBurster",
+    "ai.abstraction.SimpleEconomyRush": "SimpleEconomyRush",
+    "ai.abstraction.cRush.CRush_V1": "CRush_V1",
+    "ai.abstraction.cRush.CRush_V2": "CRush_V2",
+}
+
+# the scripted rushes the port has: name -> bots.scripted constructor
+_RUSH = dict(
+    WorkerRush="worker_rush", LightRush="light_rush", HeavyRush="heavy_rush",
+    RangedRush="ranged_rush", WorkerDefense="worker_defense",
+    LightDefense="light_defense", HeavyDefense="heavy_defense",
+    RangedDefense="ranged_defense", WorkerRushPlusPlus="worker_rush_plus_plus",
+    EconomyRush="economy_rush", EconomyMilitaryRush="economy_military_rush",
+    EMRDeterministico="emr_deterministico",
+    EconomyRushBurster="economy_rush_burster",
+    SimpleEconomyRush="simple_economy_rush", CRush_V1="crush_v1",
+    CRush_V2="crush_v2")
+RUSH_BOTS = tuple(_RUSH)
+PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI") + RUSH_BOTS
+
+# names the JAX package has and the port not yet: the ROADMAP.md queue 1
+# item that ports them
+_NOT_PORTED = dict(
+    RandomBiasedSingleUnitAI="item 4 (bots/scripted.py)",
+    POWorkerRush="item 9 (the fog of war)",
+    POLightRush="item 9 (the fog of war)",
+    POHeavyRush="item 9 (the fog of war)",
+    PORangedRush="item 9 (the fog of war)",
+    UnitActionProbabilityDistributionAI="item 11 (learned models)",
+    **{n: "item 10 (search bots)" for n in (
+        "SCV", "SCVAdaptive", "AHTN", "LSI", "PuppetNoPlan",
+        "PuppetSearchMCTS", "PuppetSearchAB", "BS1_NaiveMCTS",
+        "BS2_NaiveMCTS", "BS3_NaiveMCTS", "PortfolioAI", "PGSAI",
+        "MonteCarlo", "NaiveMCTS", "ContinuingNaiveMCTS",
+        "TwoPhaseNaiveMCTS", "InformedNaiveMCTS", "MLPSMCTS",
+        "UCTFirstPlayUrgency", "UCTUnitActions", "UCT", "DownsamplingUCT",
+        "ABCD", "SampledABCD", "IDABCD", "RTMinimax", "IDRTMinimax",
+        "IDRTMinimaxRandomized", "CooperativeAI")})
+
+
+def make_bot(name: str, env):
+    """Bot by (Java or short) name, as a ``bots.scripted.Opponent``."""
+    from .bots import scripted as S
+
+    name = JAVA_AI_ALIASES.get(name, name)
+    if name == "PassiveAI":
+        return S.passive_opponent(env)
+    if name == "RandomAI":
+        return S.random_opponent(env, 1.0)
+    if name == "RandomBiasedAI":
+        return S.random_opponent(env, 5.0)
+    if name in _RUSH:
+        return S.Opponent(getattr(S, _RUSH[name])(env), 0)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name} is not ported yet: ROADMAP.md queue 1 "
+            f"{_NOT_PORTED[name]}")
+    raise ValueError(f"unknown AI {name!r}; available: "
+                     f"{sorted(PORTED_BOTS)}")

@@ -6,7 +6,8 @@ at first use (all sources at once, one ``nvcc`` each), and loaded with
 ``ctypes``.  Nothing is built or loaded when this module is imported.
 
 The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
-``EPILOGUE``, ``SPLICE_OBS``, ``SAMPLE``) take CUDA tensors only: they
+``EPILOGUE``, ``SPLICE_OBS``, ``SAMPLE``, ``LOGPROB``, ``LOGPROB_BWD``,
+``RUSH``) take CUDA tensors only: they
 check device, dtype, shape and contiguity, allocate the outputs, launch on
 PyTorch's current stream, raise if the launch reports a CUDA error, and
 count their launches in ``.launches``.  The callers in ``engine``, ``env``,
@@ -31,13 +32,16 @@ from ..engine.types import FIELD_DTYPES, Candidates, EngineConfig, State
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
+# the kernel sources (csrc/<name>.cu), one shared library each
 NAMES = ("actor", "decode", "issue_env", "cycle", "epilogue",
-         "splice_obs", "policy_sample")
+         "splice_obs", "policy_sample", "policy_logprob", "rush")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAXT = 16
 MAXNR = 8
 NCOMP = 7
+MAXOFF = 64
+MAXLAD = 3
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # name -> nvcc's -Xptxas -v report
@@ -131,27 +135,47 @@ class _Space(ctypes.Structure):
     _fields_ = [("sizes", ctypes.c_int * NCOMP), ("total", ctypes.c_int)]
 
 
+class _RushSpec(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "iters", "need_barracks", "mixed", "combat_id", "n_harvesters",
+        "max_workers", "rebuild_base", "expand", "expand_radius", "defense",
+        "defense_thresh", "worker_id", "base_id", "barracks_id", "nlad")] + [
+        ("ladder", ctypes.c_int * MAXLAD), ("noff", ctypes.c_int),
+        ("off_dx", ctypes.c_int * MAXOFF), ("off_dy", ctypes.c_int * MAXOFF)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     cfg, st, cd = (ctypes.POINTER(_Cfg), ctypes.POINTER(_StateP),
                    ctypes.POINTER(_CandP))
-    fn = getattr(lib, f"{name}_launch")
-    fn.restype = _I
-    fn.argtypes = {
-        "actor": [cfg, st, _I, _I, _P, ctypes.POINTER(ctypes.c_float), _P,
-                  _P, _P],
-        "decode": [cfg, st, _I, _I, _P, _I, cd, _P],
-        "issue_env": [cfg, st, _I, cd, st, _P],
-        "cycle": [cfg, st, _I, st, _P, _P],
-        "epilogue": [cfg, ctypes.POINTER(_EpiCfg), _I, _P, _P, cd, cd, _P,
-                     _P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
-        "splice_obs": [cfg, st, _I, _P, st, st, _P, _P, _P, _P, _P],
-        "policy_sample": [ctypes.POINTER(_Space), _I, _I, _P, _P, _P, _P,
-                          _P, _P, _P, _P],
+    space = ctypes.POINTER(_Space)
+    entries = {
+        "actor": dict(actor=[cfg, st, _I, _I, _P,
+                             ctypes.POINTER(ctypes.c_float), _P, _P, _P]),
+        "decode": dict(decode=[cfg, st, _I, _I, _P, _I, cd, _P]),
+        "issue_env": dict(issue_env=[cfg, st, _I, cd, st, _P]),
+        "cycle": dict(cycle=[cfg, st, _I, st, _P, _P]),
+        "epilogue": dict(epilogue=[cfg, ctypes.POINTER(_EpiCfg), _I, _P, _P,
+                                   cd, cd, _P, _P, _P, _P, _I, _P, _P, _I,
+                                   _P, _P, _P]),
+        "splice_obs": dict(splice_obs=[cfg, st, _I, _P, st, st, _P, _P, _P,
+                                       _P, _P]),
+        "policy_sample": dict(policy_sample=[space, _I, _I, _P, _P, _P, _P,
+                                             _P, _P, _P, _P]),
+        "policy_logprob": dict(
+            policy_logprob_fwd=[space, _L, _P, _P, _P, _P, _P, _P],
+            policy_logprob_bwd=[space, _L, _P, _P, _P, _P, _P, _P, _P]),
+        "rush": dict(rush=[cfg, ctypes.POINTER(_RushSpec), st, _I, _I, _P,
+                           _P]),
     }[name]
+    for entry, argtypes in entries.items():
+        fn = getattr(lib, f"{entry}_launch")
+        fn.restype = _I
+        fn.argtypes = argtypes
     return lib
 
 
@@ -211,17 +235,19 @@ def _stream(device) -> int:
 
 
 class Kernel:
-    """One kernel's library entry and launch counter."""
+    """One kernel's library entry (``<name>_launch`` in ``csrc/<src>.cu``)
+    and launch counter."""
 
-    def __init__(self, name: str, replaces: str):
+    def __init__(self, name: str, replaces: str, src: Optional[str] = None):
         self.name = name
         self.replaces = replaces
-        self.source = f"microrts_tpu_torch/kernels/csrc/{name}.cu"
+        self.src = src or name
+        self.source = f"microrts_tpu_torch/kernels/csrc/{self.src}.cu"
         self.launches = 0
 
     def _launch(self, *args) -> None:
         build()
-        rc = getattr(_LIBS[self.name], f"{self.name}_launch")(*args)
+        rc = getattr(_LIBS[self.src], f"{self.name}_launch")(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel: CUDA error {rc} at launch")
         self.launches += 1
@@ -475,8 +501,7 @@ class _Sample(Kernel):
             lp = torch.empty((B, H, W), dtype=torch.float32, device=dev)
             ent = torch.empty((B, H, W), dtype=torch.float32, device=dev)
             env_lp = torch.empty(B, dtype=torch.float32, device=dev)
-        space = _Space(total=A)
-        space.sizes[:] = [int(s) for s in sizes]
+        space = _space(sizes)
 
         def ptr(t):
             return t.data_ptr() if t is not None else None
@@ -486,6 +511,98 @@ class _Sample(Kernel):
                          mask.data_ptr(), ptr(gumbel), act.data_ptr(),
                          ptr(lp), ptr(ent), ptr(env_lp), _stream(dev))
         return act, lp, ent, env_lp
+
+
+def _space(sizes) -> _Space:
+    if len(sizes) != NCOMP:
+        raise ValueError(f"expected {NCOMP} action components, got {sizes}")
+    space = _Space(total=sum(sizes))
+    space.sizes[:] = [int(s) for s in sizes]
+    return space
+
+
+def _logprob_inputs(name, sizes, logits, mask, action):
+    """Checks the shared inputs of the K7b kernels; returns (space, cells)."""
+    space = _space(sizes)
+    A = space.total
+    if logits.dim() < 2 or logits.shape[-1] != A:
+        raise ValueError(f"{name}: logits must be [..., {A}], got "
+                         f"{tuple(logits.shape)}")
+    dev = logits.device
+    lead = tuple(logits.shape[:-1])
+    _check("logits", logits, torch.float32, lead + (A,), dev)
+    _check("mask", mask, torch.bool, lead + (A,), dev)
+    _check("action", action, torch.int32, lead + (NCOMP,), dev)
+    cells = 1
+    for n in lead:
+        cells *= n
+    return space, cells
+
+
+class _Logprob(Kernel):
+    def __call__(self, sizes, logits: torch.Tensor, mask: torch.Tensor,
+                 action: torch.Tensor):
+        """Log-probability and entropy of ``action`` (int32 ``[..., 7]``)
+        under the masked factored categorical of ``logits`` (float32
+        ``[..., A]``) and ``mask`` (bool ``[..., A]``, the trajectory's
+        layout without the can-act channel).  Returns (lp, ent), float32
+        ``[...]``.  Action entries must lie inside their component."""
+        space, cells = _logprob_inputs(self.name, sizes, logits, mask, action)
+        dev = logits.device
+        lp = torch.empty(logits.shape[:-1], dtype=torch.float32, device=dev)
+        ent = torch.empty_like(lp)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(space), cells, logits.data_ptr(),
+                         mask.data_ptr(), action.data_ptr(), lp.data_ptr(),
+                         ent.data_ptr(), _stream(dev))
+        return lp, ent
+
+
+class _LogprobBwd(Kernel):
+    def __call__(self, sizes, logits: torch.Tensor, mask: torch.Tensor,
+                 action: torch.Tensor, g_lp: torch.Tensor,
+                 g_ent: torch.Tensor) -> torch.Tensor:
+        """d(sum(g_lp * lp + g_ent * ent)) / d logits for ``_Logprob``'s
+        outputs: float32 ``[..., A]``."""
+        space, cells = _logprob_inputs(self.name, sizes, logits, mask, action)
+        dev = logits.device
+        lead = tuple(logits.shape[:-1])
+        _check("g_lp", g_lp, torch.float32, lead, dev)
+        _check("g_ent", g_ent, torch.float32, lead, dev)
+        out = torch.empty_like(logits)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(space), cells, logits.data_ptr(),
+                         mask.data_ptr(), action.data_ptr(), g_lp.data_ptr(),
+                         g_ent.data_ptr(), out.data_ptr(), _stream(dev))
+        return out
+
+
+class _Rush(Kernel):
+    def __call__(self, cfg: EngineConfig, plan, state: State,
+                 player: int) -> torch.Tensor:
+        """The rush bot of ``plan`` (``bots.scripted.RushPlan``: the
+        RushSpec resolved against the unit type table) for ``player``:
+        int32 gridnet actions ``[B, H, W, 7]``."""
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        if len(plan.offsets) > MAXOFF or len(plan.ladder) > MAXLAD:
+            raise ValueError("rush: attack range or ladder too large")
+        spec = _RushSpec(**{f: int(getattr(plan, f)) for f, _ in
+                            _RushSpec._fields_
+                            if f not in ("ladder", "off_dx", "off_dy",
+                                         "nlad", "noff")})
+        spec.nlad = len(plan.ladder)
+        spec.ladder[:len(plan.ladder)] = [int(v) for v in plan.ladder]
+        spec.noff = len(plan.offsets)
+        spec.off_dx[:spec.noff] = [int(dx) for dx, _ in plan.offsets]
+        spec.off_dy[:spec.noff] = [int(dy) for _, dy in plan.offsets]
+        act = torch.empty((B, cfg.height, cfg.width, 7), dtype=torch.int32,
+                          device=dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(spec),
+                         ctypes.byref(sp), B, int(player), act.data_ptr(),
+                         _stream(dev))
+        return act
 
 
 # ``replaces``: the JAX function each kernel stands for (file:line)
@@ -499,9 +616,23 @@ EPILOGUE = _Epilogue("epilogue", "microrts_tpu/env/gridnet.py:491")
 SPLICE_OBS = _SpliceObs("splice_obs", "microrts_tpu/env/gridnet.py:424")
 # + gridnet_policy.py:103
 SAMPLE = _Sample("policy_sample", "microrts_tpu/models/gridnet_policy.py:79")
-KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE)
+LOGPROB = _Logprob("policy_logprob_fwd",
+                   "microrts_tpu/models/gridnet_policy.py:116",
+                   "policy_logprob")
+# the gradient jax.grad takes through action_logprob inside _loss
+LOGPROB_BWD = _LogprobBwd("policy_logprob_bwd",
+                          "microrts_tpu/train/ppo.py:190", "policy_logprob")
+# + scripted.py:361/370, ops/fields.py:23/126
+RUSH = _Rush("rush", "microrts_tpu/bots/scripted.py:190")
+KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE,
+           LOGPROB, LOGPROB_BWD, RUSH)
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def counts() -> Dict[str, int]:
+    """Each kernel's launches since the last ``reset_counts``."""
+    return {k.name: k.launches for k in KERNELS}

@@ -15,8 +15,11 @@ K7) dispatch by device: CPU tensors take the plain version, CUDA tensors
 launch the ``policy_sample`` kernel.  Randomness comes in as gumbel noise
 ``[B, H, W, A]``: ``jax.random.categorical`` is ``argmax(logits +
 gumbel)``, so the same gumbels give the same actions in both packages.
-``action_logprob`` (with its gradient) belongs to the training slice and
-is not ported yet.
+``action_logprob`` (K7b: the logprob and entropy of given actions, for the
+PPO loss) dispatches the same way; on CUDA tensors it is the
+``ActionLogprob`` autograd function, whose forward and backward are the
+``policy_logprob_fwd`` and ``policy_logprob_bwd`` kernels, and on CPU
+tensors autograd differentiates the plain version.
 """
 
 from __future__ import annotations
@@ -153,8 +156,52 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _flax_path(name: str) -> Tuple[str, ...]:
+    """The flax tree path (under ``"params"``) of a ``GridnetPolicy``
+    parameter: ``blocks.1.conv0.weight`` -> ``ResBlock_1/Conv_0/kernel``."""
+    *mod, leaf = name.split(".")
+    top = {"conv0": ("Conv_0",), "logits": ("Conv_1",),
+           "dense0": ("Dense_0",), "dense1": ("Dense_1",)}
+    path = (top[mod[0]] if mod[0] in top
+            else (f"ResBlock_{mod[1]}", f"Conv_{mod[2][-1]}"))
+    return path + ("kernel" if leaf == "weight" else "bias",)
+
+
+def flax_order(names) -> List[str]:
+    """Parameter names in the order ``jax.tree.flatten`` walks the flax
+    tree (sorted keys at every level): the leaf order of the JAX
+    package's checkpoints and of optax's ``global_norm`` sum."""
+    return sorted(names, key=_flax_path)
+
+
+def params_to_flax(sd: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``params_from_flax``: a ``{"params": ...}`` tree of
+    float32 numpy arrays in flax's layout."""
+    tree: dict = {}
+    for name, v in sd.items():
+        a = v.detach().to("cpu", torch.float32)
+        if name == "logits.weight":
+            a = a.T[None, None]
+        elif name.endswith("weight") and a.dim() == 4:
+            a = a.permute(2, 3, 1, 0)
+        elif name.endswith("weight"):
+            a = a.T
+        node = tree
+        *path, leaf = _flax_path(name)
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = a.numpy().copy()
+    return {"params": tree}
+
+
 # ----------------------------------------------------------------------
 # masked factored categorical (K7)
+
+def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
+    """CUDA tensors launch the kernels unless ``plain``; CPU tensors take
+    the plain versions."""
+    return not plain and t.device.type != "cpu"
+
 
 def sample_action(logits: torch.Tensor, mask: torch.Tensor,
                   space: ActionSpace, gumbel: torch.Tensor,
@@ -167,7 +214,7 @@ def sample_action(logits: torch.Tensor, mask: torch.Tensor,
     W]``, entropy ``[B, H, W]``, the per-env logprob summed over the cells
     that can act ``[B]``).  ``plain=True`` runs the plain version on any
     device (the kernel's oracle on the card)."""
-    if not plain and logits.device.type != "cpu":
+    if _use_kernel(logits, plain):
         return KN.SAMPLE(space.sizes, logits, mask, gumbel)
     return sample_action_plain(logits, mask, space, gumbel)
 
@@ -176,7 +223,7 @@ def greedy_action(logits: torch.Tensor, mask: torch.Tensor,
                   space: ActionSpace, plain: bool = False) -> torch.Tensor:
     """Per-component argmax with invalid-action masking: int32 ``[B, H,
     W, 7]``."""
-    if not plain and logits.device.type != "cpu":
+    if _use_kernel(logits, plain):
         return KN.SAMPLE(space.sizes, logits, mask)[0]
     return greedy_action_plain(logits, mask, space)
 
@@ -212,6 +259,65 @@ def greedy_action_plain(logits, mask, space: ActionSpace) -> torch.Tensor:
     comps, _ = _masked(logits, mask, space)
     return torch.stack([torch.argmax(lg, -1) for lg in comps],
                        -1).to(torch.int32)
+
+
+# ----------------------------------------------------------------------
+# logprob and entropy of given actions (K7b)
+
+def action_logprob(logits: torch.Tensor, mask: torch.Tensor,
+                   action: torch.Tensor, space: ActionSpace,
+                   plain: bool = False):
+    """Log-prob and entropy of ``action`` under the current logits.
+
+    logits float32 ``[..., A]``; mask bool ``[..., A]`` (the trajectory's
+    layout: the env mask without its can-act channel, as the JAX package
+    passes it); action int32 ``[..., 7]``.  Returns (lp, ent) float32
+    ``[...]``, each summed over the 7 components; both are differentiable
+    with respect to the logits.  ``plain=True`` runs the plain version on
+    any device (the kernels' oracle on the card)."""
+    if _use_kernel(logits, plain):
+        return ActionLogprob.apply(logits.contiguous(), mask.contiguous(),
+                                   action.contiguous(), space.sizes)
+    return action_logprob_plain(logits, mask, action, space)
+
+
+def action_logprob_plain(logits, mask, action, space: ActionSpace):
+    """gridnet_policy.py:116 in PyTorch: per component, the masked logits,
+    a log-softmax whose max is a constant (``stop_gradient`` in
+    ``jax.nn.log_softmax``), the taken entry and the entropy."""
+    lp_sum, ent_sum = 0.0, 0.0
+    for i, (lg, m) in enumerate(zip(split_components(logits, space),
+                                    split_components(mask, space))):
+        has = m.any(-1, keepdim=True)
+        lg = torch.where(m | ~has, lg, torch.tensor(
+            NEG_INF, dtype=lg.dtype, device=lg.device))
+        shifted = lg - lg.max(-1, keepdim=True).values.detach()
+        logp = shifted - torch.log(torch.exp(shifted).sum(-1, keepdim=True))
+        p = torch.exp(logp)
+        lp_sum = lp_sum + torch.gather(
+            logp, -1, action[..., i:i + 1].long())[..., 0]
+        ent_sum = ent_sum - torch.where(p > 0, p * logp, 0.0).sum(-1)
+    return lp_sum, ent_sum
+
+
+class ActionLogprob(torch.autograd.Function):
+    """``action_logprob`` on the card: the forward launches
+    ``policy_logprob_fwd``, the backward ``policy_logprob_bwd`` (which
+    recomputes the softmax from the saved logits)."""
+
+    @staticmethod
+    def forward(ctx, logits, mask, action, sizes):
+        lp, ent = KN.LOGPROB(sizes, logits, mask, action)
+        ctx.save_for_backward(logits, mask, action)
+        ctx.sizes = sizes
+        return lp, ent
+
+    @staticmethod
+    def backward(ctx, g_lp, g_ent):
+        logits, mask, action = ctx.saved_tensors
+        d = KN.LOGPROB_BWD(ctx.sizes, logits, mask, action,
+                           g_lp.contiguous(), g_ent.contiguous())
+        return d, None, None, None
 
 
 def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Where the time of one env step or one rollout step goes, on a CUDA card.
+"""Where the time of one env step, one rollout step or one PPO update goes,
+on a CUDA card.
 
-    python -m microrts_tpu_torch.profile_step [--mode step|rollout]
-        [--batch 1024] [--steps 50]
+    python -m microrts_tpu_torch.profile_step [--mode step|rollout|update]
+        [--batch 1024] [--steps 50] [--rollout-len 128] [--updates 2]
 
 Runs the kernel path on basesWorkers16x16 from a mid-game state:
 
@@ -11,6 +12,12 @@ Runs the kernel path on basesWorkers16x16 from a mid-game state:
   opponent draws, player 0's masks (``actor``), the bf16 ``GridnetPolicy``
   forward (width 64, 4 blocks, cuDNN), the ``policy_sample`` kernel, the
   RandomBiasedAI opponent (``actor``), then the vec step;
+* ``update``: ``PPOTrainer.update`` at ``PPOConfig``'s defaults (4 epochs
+  x 4 minibatches) against WorkerRush from a fresh start, split into the
+  rollout, GAE and normalisation, and per minibatch the policy forward
+  (cuDNN), K7b's forward (``policy_logprob_fwd``), the loss and backward
+  (cuDNN and ``policy_logprob_bwd``) and the optimizer; one warm-up
+  update, then ``--updates`` measured ones;
 
 and reports:
 
@@ -35,6 +42,7 @@ import torch
 
 from . import kernels as KN
 from .bots.scripted import random_bot, random_opponent
+from .config import make_bot
 from .env.gridnet import GridnetEnv
 from .env.vec import VecGridnetEnv
 from .models.gridnet_policy import gumbel_noise, sample_action
@@ -99,17 +107,107 @@ def rollout_phases(tr, s, steps, obs, gen, ev):
     return out, steps, oh[0]
 
 
+# the update's phases, named by the mark that ends each (PPOTrainer.update)
+UPDATE_PHASES = dict(rollout="rollout", gae="GAE + normalisation",
+                     forward="policy forward (cuDNN)",
+                     logprob="K7b forward (policy_logprob_fwd)",
+                     backward="loss + backward (cuDNN + policy_logprob_bwd)",
+                     optimizer="optimizer (clip + Adam)")
+
+
+def device_busy(prof):
+    """(busy us, the device kernels by name) of a torch.profiler run: the
+    union of the kernels' intervals on the card's timeline."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans_dev = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if e.device_type == cuda)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans_dev:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kern = [a for a in prof.key_averages() if a.device_type == cuda]
+    kern.sort(key=lambda a: -a.self_device_time_total)
+    return busy, kern
+
+
+def profile_update(args, dev) -> int:
+    B = args.batch
+    env = GridnetEnv(asset_path(MAP), device=dev)
+    tr = PPOTrainer(env, PPOConfig(num_envs=B, rollout_len=args.rollout_len),
+                    opponent=make_bot("WorkerRush", env))
+    ts = tr.init(seed=0)
+    ts, _ = tr.update(ts)                       # warm-up
+    torch.cuda.synchronize()
+    spans = {k: 0.0 for k in UPDATE_PHASES}
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(args.updates):
+        marks = []
+
+        def ev(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev("start")
+        ts, m = tr.update(ts, ev=ev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            spans[name] += a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated()
+    n = args.updates
+    wall = sum(walls) / n
+    total = sum(spans.values())
+    name = torch.cuda.get_device_name(0)
+    steps = B * args.rollout_len
+    print(f"update phases at B={B}, rollout_len {args.rollout_len} ({n} "
+          f"updates after a warm-up, card timeline, ms/update; {name}):")
+    for k, v in spans.items():
+        print(f"  {UPDATE_PHASES[k]:46s} {v / n:10.2f}  "
+              f"{100 * v / total:5.1f}%")
+    print(f"  wall per update {wall:.3f} s; {steps / wall:.1f} env-steps/s; "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        ts, _ = tr.update(ts)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t1) * 1e6
+    busy, kern = device_busy(prof)
+    print("device time by kernel (top 16, ms per update):")
+    for a in kern[:16]:
+        print(f"  {a.self_device_time_total / 1e3:9.2f}  {a.count:6d}x  "
+              f"{a.key[:70]}")
+    print(f"device busy {busy / 1e6:.3f} s of {window / 1e6:.3f} s per "
+          f"update ({100 * busy / window:.1f}%)")
+    print(json.dumps(dict(
+        mode="update", batch=B, rollout_len=args.rollout_len,
+        wall_s_per_update=wall, env_steps_per_s=steps / wall,
+        phases_ms={k: v / n for k, v in spans.items()},
+        peak_bytes=peak, device_busy_share=busy / window, device=name)))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("step", "rollout"), default="step")
+    ap.add_argument("--mode", choices=("step", "rollout", "update"),
+                    default="step")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--rollout-len", type=int, default=128)
+    ap.add_argument("--updates", type=int, default=2)
     ap.add_argument("--warm", type=int, default=400,
                     help="ticks played before measuring (mid-game state)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device is available")
     dev = torch.device("cuda", 0)
+    if args.mode == "update":
+        return profile_update(args, dev)
     B = args.batch
     env = GridnetEnv(asset_path(MAP), device=dev)
     vec = VecGridnetEnv(env, B, max_steps=5000)
@@ -171,15 +269,7 @@ def main() -> int:
             one(lambda n: None)
         torch.cuda.synchronize()
         window = (time.perf_counter() - t1) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
-    spans_dev = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events() if e.device_type == cuda)
-    busy, end = 0.0, float("-inf")      # union of the kernels' intervals
-    for a, b in spans_dev:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    kern = [a for a in prof.key_averages() if a.device_type == cuda]
-    kern.sort(key=lambda a: -a.self_device_time_total)
+    busy, kern = device_busy(prof)
     print("device time by kernel (top 14, us per step):")
     for a in kern[:14]:
         print(f"  {a.self_device_time_total / n_prof:9.1f}  "

@@ -5,19 +5,25 @@ nor the JAX package, so it runs where only the port is installed::
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 
-Tolerance: exact, except the policy sampler's logprob and entropy (fp32
-sums in another order than the plain version's: 1e-5 relative + 1e-4
-absolute).
+Tolerance: exact, except the policy sampler's and K7b's logprob and
+entropy (fp32 sums in another order than the plain version's: 1e-5
+relative + 1e-4 absolute), K7b's gradient of the logits (1e-4 relative +
+1e-5 absolute, against autograd through the plain version), and the
+parameters after a PPO update on the kernel path against the plain path
+(see ``test_update_kernel_path_matches_plain_on_card``).
 """
 
 import pytest
 import torch
 
+from microrts_tpu_torch.bots import scripted as S
 from microrts_tpu_torch.bots.scripted import random_bot, random_opponent
+from microrts_tpu_torch.config import RUSH_BOTS, make_bot
 from microrts_tpu_torch.env.gridnet import GridnetEnv
 from microrts_tpu_torch.env.vec import VecGridnetEnv
 from microrts_tpu_torch.models.gridnet_policy import (
-    ActionSpace, GridnetPolicy, greedy_action, gumbel_noise, sample_action)
+    ActionSpace, GridnetPolicy, action_logprob, greedy_action, gumbel_noise,
+    sample_action)
 from microrts_tpu_torch.train.ppo import PPOConfig, PPOTrainer
 from microrts_tpu_torch.utils.assets import asset_path
 
@@ -63,9 +69,10 @@ def test_kernel_path_equals_plain_on_card(map_rel):
             assert torch.equal(a, b), t
         assert torch.equal(kvec.masks(ks), pvec.masks(ps)), t
     torch.cuda.synchronize()
-    assert {k.name: k.launches for k in KN.KERNELS} == dict(
+    assert KN.counts() == dict(
         actor=4 * ticks, decode=2 * ticks, issue_env=2 * ticks, cycle=ticks,
-        epilogue=ticks, splice_obs=ticks, policy_sample=0)
+        epilogue=ticks, splice_obs=ticks, policy_sample=0,
+        policy_logprob_fwd=0, policy_logprob_bwd=0, rush=0)
 
 
 def _states(env, B, ticks, seed):
@@ -179,9 +186,15 @@ def test_rollout_kernel_path_equals_plain_on_card(selfplay):
         g.manual_seed(3)
         KN.reset_counts()
         out.append(tr._rollout(ts, gen=g))
-        counts = {k.name: k.launches for k in KN.KERNELS}
+        counts = KN.counts()
         if not plain:
-            assert all(v > 0 for v in counts.values()), counts
+            # every kernel of the rollout; the learner's and the rush
+            # bot's are not on this path
+            rollout = ("actor", "decode", "issue_env", "cycle", "epilogue",
+                       "splice_obs", "policy_sample")
+            assert all(counts[n] > 0 for n in rollout), counts
+            assert all(counts[n] == 0 for n in counts
+                       if n not in rollout), counts
             assert counts["policy_sample"] == 8 * (2 if selfplay else 1)
             assert counts["epilogue"] == 8
             # the first observation, one per step, and in self-play the
@@ -239,3 +252,179 @@ def test_kernel_rejects_bad_input_on_card():
         KN.SAMPLE(sizes, logits, mask, logits[..., :77].contiguous())
     with pytest.raises(ValueError):
         KN.SAMPLE(sizes, logits.transpose(1, 2), mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_logprob_kernels_equal_plain_on_card(map_rel):
+    """K7b forward and backward against the plain version and autograd
+    through it, on the logits of the seeded bf16 policy over a random-bot
+    trajectory, with masks that hold components with no legal entry."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    dev = torch.device("cuda")
+    B = 32
+    env = GridnetEnv(asset_path(map_rel), device=dev, plain=True)
+    cfg = env.cfg.engine
+    space = ActionSpace(cfg.num_types, 2 * cfg.max_range + 1)
+    net = GridnetPolicy(space, 20 + cfg.num_types).init_params(
+        torch.Generator().manual_seed(0)).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    for t, (pre, *_) in enumerate(_states(env, B, 30, seed=4)[::10]):
+        with torch.no_grad():
+            logits, _ = net(env.observation_onehot_plain(pre, 0))
+        mask = env.masks_plain(pre, 0)[..., 1:] != 0
+        if t == 1:      # random masks: some components with no legal entry
+            mask = torch.rand(mask.shape, generator=g, device=dev) < 0.3
+        act = sample_action(logits, env.masks_plain(pre, 0), space,
+                            gumbel_noise(logits.shape, g, dev),
+                            plain=True)[0]
+        w1 = torch.randn(logits.shape[:-1], generator=g, device=dev)
+        w2 = torch.randn(logits.shape[:-1], generator=g, device=dev)
+        KN.reset_counts()
+        lg = logits.clone().requires_grad_(True)
+        klp, kent = action_logprob(lg, mask, act, space)
+        (w1 * klp + w2 * kent).sum().backward()
+        assert KN.LOGPROB.launches == 1 and KN.LOGPROB_BWD.launches == 1
+        plg = logits.clone().requires_grad_(True)
+        plp, pent = action_logprob(plg, mask, act, space, plain=True)
+        (w1 * plp + w2 * pent).sum().backward()
+        torch.testing.assert_close(klp, plp, **LP_TOL)
+        torch.testing.assert_close(kent, pent, **LP_TOL)
+        torch.testing.assert_close(lg.grad, plg.grad, rtol=1e-4, atol=1e-5)
+        # an upstream gradient on lp alone (entropy unused)
+        lg.grad = None
+        action_logprob(lg, mask, act, space)[0].sum().backward()
+        plg.grad = None
+        action_logprob(plg, mask, act, space, plain=True)[0].sum().backward()
+        torch.testing.assert_close(lg.grad, plg.grad, rtol=1e-4, atol=1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", ["maps/8x8/basesWorkers8x8.xml",
+                                     MAPS[1]])
+def test_rush_kernel_equals_plain_on_card(map_rel):
+    """The rush kernel against rush_bot_plain for every ported spec (and
+    the expansion branch), both players, on the states of a plain
+    WorkerRush-vs-LightRush run (240 ticks on 8x8, 432 on 16x16; the envs
+    open with a few random ticks each) with some bases removed."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    dev = torch.device("cuda")
+    B = 32
+    env = GridnetEnv(asset_path(map_rel), device=dev, plain=True)
+    kenv = GridnetEnv(asset_path(map_rel), device=dev)
+    p0, p1 = S.worker_rush(env), S.light_rush(env)
+    rnd = random_bot(env, BIAS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    s = env.reset(B)
+    states = []
+    every = 2 * env.h + 4           # 12 states, long enough to fight
+    # env k opens with 2 (k % 16) random ticks, so that the envs differ
+    opening = (2 * (torch.arange(B, device=dev) % 16))[:, None, None, None]
+    for t in range(12 * every):
+        if t % every == every // 2:
+            states.append(s)
+        u0, u1 = (torch.rand((B, env.h, env.w, 2), generator=g, device=dev)
+                  for _ in (0, 1))
+        a0 = torch.where(t < opening, rnd(s, 0, u0), p0(s, 0))
+        a1 = torch.where(t < opening, rnd(s, 1, u1), p1(s, 1))
+        s, _, _ = env.step(s, a0, a1)
+    # bases removed and resources raised in half the envs (rebuilds)
+    base = (s.utype == 2) & (torch.arange(B, device=dev) % 2 == 0)[
+        :, None, None]
+    states.append(s.replace(utype=torch.where(base, 0, s.utype),
+                            owner=torch.where(base, -1, s.owner),
+                            resources=s.resources.clamp(min=20)))
+    specs = [make_bot(n, kenv).bot.plan for n in RUSH_BOTS] + [
+        S.rush_plan(kenv, S.RushSpec("Light", expand=True))]
+    counts = {}
+    KN.reset_counts()
+    for st in states:
+        for plan in specs:
+            for p in (0, 1):
+                k = KN.RUSH(kenv.cfg.engine, plan, st, p)
+                want = S.rush_bot_plain(env, plan, st, p, counts)
+                assert torch.equal(k, want), (plan, p)
+    torch.cuda.synchronize()
+    assert KN.RUSH.launches == len(states) * len(specs) * 2
+    for b in ("train_worker", "harvest", "return", "attack",
+              "move_to_enemy", "rebuild_base"):
+        assert counts.get(b, 0) > 0, (b, counts)
+
+
+@pytest.mark.gpu
+def test_update_kernel_path_matches_plain_on_card():
+    """One PPOTrainer.update (16x16, 32 envs, 4 steps, 2 epochs x 2
+    minibatches, bf16 policy, WorkerRush, SGD) through the kernels against
+    the plain path from the same start with the same noise and cuDNN
+    deterministic: the rollout exact; the loss terms within 1e-3 relative
+    and every parameter within 1e-5 absolute of the plain path's (K7b's
+    float32 sums in another order, through a bf16 backward)."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.train import optim
+    dev = torch.device("cuda")
+    cfg = PPOConfig(num_envs=32, rollout_len=4, max_steps=5, epochs=2,
+                    minibatches=2)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = []
+    for plain in (False, True):
+        env = GridnetEnv(asset_path(MAPS[1]), device=dev, plain=plain)
+        tr = PPOTrainer(env, cfg, opponent=make_bot("WorkerRush", env),
+                        tx=optim.chain(optim.clip_by_global_norm(0.5),
+                                       optim.sgd(cfg.lr)))
+        ts = tr.init(seed=0)
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        trajs = []
+        roll = tr._rollout
+        tr._rollout = lambda *a, **k: trajs.append(roll(*a, **k)) or trajs[-1]
+        KN.reset_counts()
+        ts2, m = tr.update(ts, gen=g)
+        counts = KN.counts()
+        if plain:
+            assert not any(counts.values()), counts
+        else:
+            assert all(v > 0 for v in counts.values()), counts
+            assert counts["policy_logprob_fwd"] == 4
+            assert counts["policy_logprob_bwd"] == 4
+            assert counts["rush"] == 4
+        out.append((ts2, m, trajs[0][1], tr.model.state_dict()))
+    (kts, km, ktj, kp), (pts, pm, ptj, pp) = out
+    assert kts.env_states.equal(pts.env_states) == (True, "")
+    for f in ("obs", "mask", "action", "reward", "done", "value"):
+        assert torch.equal(getattr(ktj, f), getattr(ptj, f)), f
+    for k in ("pg_loss", "v_loss", "entropy", "ratio"):
+        torch.testing.assert_close(km[k], pm[k], rtol=1e-3, atol=0)
+    for k in kp:
+        torch.testing.assert_close(kp[k], pp[k], rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_bad_input_on_card():
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    sizes = (6, 4, 4, 4, 4, 7, 49)
+    logits = torch.zeros((4, 8, 8, 78), device="cuda")
+    mask = torch.ones((4, 8, 8, 78), dtype=torch.bool, device="cuda")
+    act = torch.zeros((4, 8, 8, 7), dtype=torch.int32, device="cuda")
+    g = torch.zeros((4, 8, 8), device="cuda")
+    with pytest.raises(TypeError):
+        KN.LOGPROB(sizes, logits, mask.int(), act)
+    with pytest.raises(ValueError):
+        KN.LOGPROB(sizes, logits[..., :77].contiguous(), mask, act)
+    with pytest.raises(TypeError):
+        KN.LOGPROB_BWD(sizes, logits, mask, act.long(), g, g)
+    with pytest.raises(ValueError):
+        KN.LOGPROB_BWD(sizes, logits, mask, act, g[:2], g)
+    env = GridnetEnv(asset_path("maps/8x8/basesWorkers8x8.xml"),
+                     device="cuda")
+    s = env.reset(4)
+    plan = S.worker_rush(env).plan
+    with pytest.raises(TypeError):
+        KN.RUSH(env.cfg.engine, plan, s.replace(uid=s.uid.short()), 0)

@@ -33,6 +33,8 @@ def test_import_loads_no_jax():
             "import microrts_tpu_torch, microrts_tpu_torch.kernels\n"
             "import microrts_tpu_torch.env.vec, microrts_tpu_torch.bots.scripted\n"
             "import microrts_tpu_torch.train.ppo, microrts_tpu_torch.profile_step\n"
+            "import microrts_tpu_torch.train.run, microrts_tpu_torch.config\n"
+            "import microrts_tpu_torch.utils.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'microrts_tpu')]\n"
             "print(bad)\n"

@@ -11,6 +11,7 @@ port, whose bots take uniforms instead of keys.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -29,6 +30,17 @@ from microrts_tpu_torch.utils.assets import asset_path
 
 BIAS = 5.0
 CAND_FIELDS = Candidates.FIELDS
+
+
+@pytest.fixture
+def torch_one_thread():
+    """Run a test with one intra-op torch thread (restored after it): the
+    port's CPU tests are small, and the driver runs several test processes
+    at once on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def leaves(js) -> dict:

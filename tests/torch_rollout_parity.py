@@ -23,13 +23,18 @@ from torch_parity import (BIAS, assert_eq, assert_state_eq, envs, jax_fns,
                           leaves)
 
 
-def _py_scan(f, init, xs, length=None, **_):
-    """``lax.scan`` as a Python loop (eager body)."""
-    carry, ys = init, []
-    for i in range(length):
-        carry, y = f(carry, None if xs is None else
-                     jax.tree.map(lambda x: x[i], xs))
-        ys.append(y)
+def _py_scan(f, init, xs, length=None, reverse=False):
+    """``lax.scan`` as a Python loop (eager body).  The length comes from
+    ``xs`` when not given; with ``reverse`` the loop walks the inputs
+    backwards and stacks the outputs in the inputs' order, as
+    ``lax.scan(..., reverse=True)`` does."""
+    if length is None:
+        length = jax.tree.leaves(xs)[0].shape[0]
+    order = range(length - 1, -1, -1) if reverse else range(length)
+    carry, ys = init, [None] * length
+    for i in order:
+        carry, ys[i] = f(carry, None if xs is None else
+                         jax.tree.map(lambda x: x[i], xs))
     return carry, jax.tree.map(lambda *a: jnp.stack(a), *ys)
 
 
@@ -125,7 +130,7 @@ def run_pair(map_rel, n, steps, max_steps, selfplay, seed):
 def check_pair(r):
     jt, t = r["jtraj"], r["traj"]
     assert_eq(jt.obs, t.obs, "obs")
-    assert_eq(jt.mask, t.mask[..., 1:] != 0, "mask")
+    assert_eq(jt.mask, t.mask, "mask")
     assert_eq(jt.action, t.action, "action")
     assert_eq(jt.reward, t.reward, "reward")
     assert_eq(jt.done, t.done, "done")
@@ -154,3 +159,109 @@ def check_pair(r):
             r["noise"][s].gumbel.numpy(), r["jspace"])))
     assert margin > worst_diff, (margin, worst_diff)
     return margin, worst_diff
+
+
+# ----------------------------------------------------------------------
+# a whole PPO update in both packages
+
+def jax_opponent(name, jenv):
+    """The JAX package's bot ``name`` (jitted), or None for no opponent."""
+    from microrts_tpu.config import make_bot as jax_make_bot
+    return jax.jit(jax_make_bot(name, jenv))
+
+
+class _JitModel:
+    """A flax module whose ``apply`` is jitted (the rollout's forward)."""
+
+    def __init__(self, module):
+        self.module = module
+        self.apply = jax.jit(module.apply)
+
+
+def trainer_pair(map_rel, n, steps, opponent, tx, seed, width=16, blocks=1,
+                 max_steps=50, epochs=2, minibatches=2, lr=2.5e-4,
+                 dtype="float32"):
+    """(JAX trainer, its TrainState, port trainer, its TrainState) on the
+    same envs and parameters; ``tx`` names the optimizer ("sgd" or
+    "adam", each after clip_by_global_norm(0.5))."""
+    import optax
+
+    from microrts_tpu_torch.config import make_bot
+    from microrts_tpu_torch.train import optim
+
+    jenv, env = envs(map_rel)
+    fns = jax_fns(jenv)
+    fns.patch(jenv)
+    jenv.masks = jax.jit(jenv.masks)
+    ecfg = jenv.cfg.engine
+    jspace = JP.ActionSpace(ecfg.num_types, 2 * ecfg.max_range + 1)
+    jdt = dict(float32=jnp.float32, bfloat16=jnp.bfloat16)[dtype]
+    tdt = dict(float32=torch.float32, bfloat16=torch.bfloat16)[dtype]
+    cfg = dict(num_envs=n, rollout_len=steps, max_steps=max_steps,
+               epochs=epochs, minibatches=minibatches, lr=lr)
+    jtx = optax.chain(optax.clip_by_global_norm(0.5),
+                      optax.sgd(lr) if tx == "sgd" else optax.adam(lr))
+    ttx = optim.chain(optim.clip_by_global_norm(0.5),
+                      optim.sgd(lr) if tx == "sgd" else optim.adam(lr))
+    jtr = JPPO.PPOTrainer(
+        jenv, JPPO.PPOConfig(**cfg), opponent=jax_opponent(opponent, jenv),
+        model=JP.GridnetPolicy(jspace, width=width, blocks=blocks,
+                               dtype=jdt), tx=jtx)
+    jtr._loss = jax.jit(jtr._loss)
+    jts = jtr.init(jax.random.PRNGKey(seed))
+    jtr.model = _JitModel(jtr.model)
+    tr = PPOTrainer(env, PPOConfig(**cfg), opponent=make_bot(opponent, env),
+                    model=GridnetPolicy(
+                        ActionSpace(ecfg.num_types, 2 * ecfg.max_range + 1),
+                        20 + ecfg.num_types, width=width, blocks=blocks,
+                        dtype=tdt), tx=ttx)
+    tr.model.load_state_dict(params_from_flax(
+        jax.tree.map(np.asarray, jts.params)))
+    ts = tr.init(seed=None)
+    ts = dataclasses.replace(
+        ts, env_states=state_from_numpy(leaves(jts.env_states)),
+        env_steps=torch.from_numpy(np.array(jts.env_steps)))
+    return jtr, jts, tr, ts
+
+
+_jit_sample = jax.jit(JP.sample_action, static_argnums=3)
+
+
+def run_update(jtr, jts, tr, ts):
+    """One update in each package from the same start: JAX's ``update``
+    unjitted with its scans as Python loops, the port's with the noise
+    JAX's key tree draws.  Returns (JAX TrainState, JAX metrics, port
+    TrainState, port metrics, the JAX trajectory, the port trajectory)."""
+    n = tr.cfg.num_envs
+    noise = jax_noise(jts, n, tr.cfg.rollout_len, tr.env.h, tr.env.w,
+                      tr.space.sizes, False)
+    jtrajs, ttrajs = [], []
+    jroll, troll = jtr._rollout, tr._rollout
+
+    def jrec(*a):
+        out = jroll(*a)
+        jtrajs.append(out[1])
+        return out
+
+    def trec(*a, **k):
+        out = troll(*a, **k)
+        ttrajs.append(out[1])
+        return out
+
+    jtr._rollout, tr._rollout = jrec, trec
+    jscan, jsample = jax.lax.scan, JPPO.sample_action
+    jax.lax.scan = _py_scan
+    JPPO.sample_action = _jit_sample
+    try:
+        jts2, jm = jtr.update(jts, jnp.arange(n, dtype=jnp.uint32))
+        ts2, tm = tr.update(ts, noise=lambda t: noise[t])
+    finally:
+        jax.lax.scan, JPPO.sample_action = jscan, jsample
+        jtr._rollout, tr._rollout = jroll, troll
+    return jts2, jm, ts2, tm, jtrajs[0], ttrajs[0]
+
+
+def flax_params(tr):
+    """The port model's parameters as a flax tree of numpy arrays."""
+    from microrts_tpu_torch.models.gridnet_policy import params_to_flax
+    return params_to_flax(tr.model.state_dict())
