@@ -7,7 +7,7 @@ Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
 envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the ten CUDA kernels from ``microrts_tpu_torch/
+2. build: compiles the twelve CUDA kernels from ``microrts_tpu_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel; ``-Xptxas -v``
    report printed);
 3. realistic states: runs the plain PyTorch path (RandomBiasedAI, bias 5,
@@ -25,7 +25,13 @@ envs:
    are the seeded bf16 ``GridnetPolicy``'s at full width, over four
    recorded ticks: a 4096-sample minibatch); ``rush`` for every ported
    ``RushSpec`` (and the expansion branch), both players, with the
-   decision counts of the plain version printed; each kernel and its
+   decision counts of the plain version printed; ``event_jump`` (K8) in
+   both of its modes with and without a per-lane cap, and the cycle
+   kernel's ``active`` lanes after it, on the post-issue, pre-step,
+   terminal, rush and initial records; ``evaluate`` (K12a), all seven
+   functions from both players' view and a per-lane player vector (the
+   Sqrt family and the upper bound exact, Simple, Opt and Lanchester
+   within 1e-5 of the larger of the value and 1); each kernel and its
    plain version are timed with CUDA events;
 5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
    kernels next to the plain path, same start and uniforms, 256 ticks
@@ -54,13 +60,38 @@ envs:
    gradient multiplied by 1 +- 1e-6 (random signs); then one clip + Adam
    step on one minibatch with an fp32 policy: every parameter whose
    plain gradient exceeds 1e-6 within 1e-2 lr of the plain path's (the
-   witness's reading printed beside); every one of the ten kernels
-   launched; then training env-steps/s at ``PPOConfig(num_envs=1024)``'s
-   defaults (rollout_len 128, or the largest that fits), one warm-up
-   update and the median of two, with the rollout/learn split and the
-   peak memory;
-8. one JSON line of every kernel, the ``nvidia-smi`` line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+   witness's reading printed beside); every one of the ten training
+   kernels launched, the decision-frame path's two not; then training
+   env-steps/s at ``PPOConfig(num_envs=1024)``'s defaults (rollout_len
+   128, or the largest that fits), one warm-up update and the median of
+   two, with the rollout/learn split and the peak memory;
+8. the round robin: PassiveAI, RandomBiasedAI and the four rushes, 30
+   ordered pairs x 34 games = 1020 lanes of one pool batch
+   (``eval/tournament.round_robin``), through the kernels next to the
+   plain path with the same seed to 150 cycles (tables, winners and
+   final states equal; ``event_jump``, ``cycle``, the actor's, the
+   step's and the rush kernels launched, ``evaluate`` not), and 64
+   RandomBiasedAI vs WorkerRush games (``play_matches``) next to the
+   plain path to 450 cycles, in which games end (winners and frozen
+   final states equal), then ``round_robin`` timed on the kernels to
+   the default 2000 cycles: game-ticks/s (the lanes' ticks over the wall
+   seconds), frames, the table, and the device busy share of a profiled
+   64-cycle run;
+9. MonteCarlo (K=12, playout_len 48): one decision of 64 recorded rush
+   games (768 playout lanes) and 24-cycle games against WorkerRush
+   (``play_matches``), through the kernels next to the plain path with
+   the same draws (actions, winners and final states equal;
+   ``event_jump`` and ``evaluate`` launched); then eight timed
+   decisions: game-decisions/s and playout ticks/s;
+10. ``train.run.evaluate``: the seeded bf16 policy against WorkerRush,
+   64 games to 32 cycles through the kernels next to the plain path
+   (win-rate, winners and final states equal), then 1024 games to 2000
+   cycles, timed, with its win-rate;
+11. one JSON line of every kernel (launches: phase 7's for the training
+   kernels, one MonteCarlo decision's for ``event_jump`` and
+   ``evaluate``; every phase's under ``launches_by_phase``), the
+   ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 No single PyTorch call computes any kernel's function (the engine, the
 bots and the masked factored categorical are the JAX package's own
@@ -113,6 +144,33 @@ ADAM_TOL = dict(metrics_rtol=1e-2, gap_vs_witness=2.0, step_grad_min=1e-6,
                 step_atol_lr=1e-2)
 ROLLOUT_KERNELS = ("actor", "decode", "issue_env", "cycle", "epilogue",
                    "splice_obs", "policy_sample")
+TRAIN_KERNELS = ROLLOUT_KERNELS + ("policy_logprob_fwd", "policy_logprob_bwd",
+                                   "rush")
+# the decision-frame path: tournaments and MonteCarlo search
+RR_BOTS = ("PassiveAI", "RandomBiasedAI", "WorkerRush", "LightRush",
+           "HeavyRush", "RangedRush")
+RR_GAMES = 34            # per ordered pair: 30 pairs x 34 = 1020 lanes
+RR_CHECK_CYCLES = 150    # phase 8: the kernel run next to the plain path
+WIN_CHECK_GAMES = 64     # phase 8: RandomBiasedAI vs WorkerRush next to the
+WIN_CHECK_CYCLES = 450   # ... plain path (WorkerRush wins from tick 360)
+RR_CYCLES = 2000         # phase 8: timed at the JAX package's default
+RR_PROFILE_CYCLES = 64   # phase 8: the profiled window
+RR_KERNELS = ("actor", "decode", "issue_env", "cycle", "rush", "event_jump")
+MC_GAMES = 64            # phase 9: MonteCarlo (K=12, L=48) vs WorkerRush
+MC_CHECK_CYCLES = 24     # phase 9: the games next to the plain path
+MC_TIME_DECISIONS = 8    # phase 9: timed decisions (64 games each)
+MC_KERNELS = ("actor", "decode", "issue_env", "cycle", "event_jump",
+              "evaluate")
+EVAL_CHECK_GAMES = 64    # phase 10: evaluate next to the plain path ...
+EVAL_CHECK_CYCLES = 32   # ... over short games
+EVAL_GAMES = 1024        # phase 10: evaluate of the policy vs WorkerRush
+# K12a: the Sqrt family and the upper bound sum small integers (exact);
+# Simple, Opt and Lanchester sum float32 terms in another order than the
+# plain version: within 1e-5 of the larger of the value and 1
+EVAL_EXACT = ("simple_sqrt_eval", "simple_sqrt_eval2", "simple_sqrt_eval3",
+              "simple_opt_upper_bound")
+EVAL_FLOAT = ("simple_eval", "simple_opt_eval", "lanchester_eval")
+EVAL_RTOL = 1e-5
 
 
 def smi_line() -> str:
@@ -209,6 +267,21 @@ def _no_grad(fn, *args):
         return fn(*args)
 
 
+def eval_call(name, state, player, cfg, type_ids, plain):
+    """Evaluation function ``name`` of ops/evaluation.py on ``state``."""
+    from microrts_tpu_torch.ops import evaluation as EV
+    fn = getattr(EV, name)
+    if name == "simple_opt_upper_bound":
+        return fn(state, cfg, plain=plain)
+    if name == "lanchester_eval":
+        return fn(state, player, cfg, type_ids, plain=plain)
+    return fn(state, player, cfg, plain=plain)
+
+
+def lane_ticks(state) -> int:
+    return int(state.time.sum())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -222,14 +295,20 @@ def main() -> int:
     from microrts_tpu_torch.config import RUSH_BOTS, make_bot
     from microrts_tpu_torch.engine.types import (ATTACK, FIELD_DTYPES,
                                                  HARVEST, PRODUCE, RETURN,
-                                                 Candidates)
+                                                 Candidates, State)
     from microrts_tpu_torch.env.gridnet import GridnetEnv
     from microrts_tpu_torch.env.vec import VecGridnetEnv
     from microrts_tpu_torch.models.gridnet_policy import (
         ActionSpace, GridnetPolicy, action_logprob_plain, greedy_action_plain,
         gumbel_noise, sample_action_plain)
+    from microrts_tpu_torch.bots.search import monte_carlo_bot
+    from microrts_tpu_torch.eval import tournament as TN
+    from microrts_tpu_torch.ops import evaluation as EV
+    from microrts_tpu_torch.ops import playout as PO
+    from microrts_tpu_torch.profile_step import device_busy
     from microrts_tpu_torch.train import optim
     from microrts_tpu_torch.train.ppo import PPOConfig, PPOTrainer
+    from microrts_tpu_torch.train.run import evaluate
     from microrts_tpu_torch.utils.assets import asset_path
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -446,6 +525,70 @@ def main() -> int:
     if missing:
         raise AssertionError(f"the rush records exercise no {missing}")
 
+    # K8: the jump in both modes (playout_step's, and fast_forward's gated
+    # step with done lanes), with and without a per-lane cap, on the
+    # post-issue states (every unit busy), the pre-step states, the
+    # terminal record and the rush records (busy and idle lanes); the
+    # cycle kernel's active flag on the lanes that take the cycle
+    k8_inputs = ([r["s2"] for r in records] + [records[-1]["post"]]
+                 + [r["s"] for r in records[::4]] + rush_records
+                 + [penv.reset(B)])
+    k8_seen = dict(jumped=0, capped=0, no_busy=0, cycled=0, frozen=0,
+                   over=0)
+    for st in k8_inputs:
+        te = st.time + torch.randint(-2, 40, (B,), generator=gen, device=dev,
+                                     dtype=torch.int32)
+        dn = torch.rand(B, generator=gen, device=dev) < 0.1
+        for d, t in ((None, None), (None, te), (dn, None), (dn, te)):
+            kj, kt, ko = KN.EVENT_JUMP(st, t, 512, d)
+            pj, pt, po = PO.event_jump_plain(penv, st, t, 512, d)
+            if (ko is None) != (d is not None) or (po is None) != (
+                    d is not None):
+                raise AssertionError("event_jump: gameover returned in the "
+                                     "gated mode or missing in the other")
+            over = [("over", ko, po)] if d is None else []
+            errs["event_jump"] = max(errs["event_jump"], expect_equal(
+                "event_jump", state_pairs(kj, pj) + [("take", kt, pt)]
+                + over))
+            kc, kd = KN.CYCLE(cfg, kj, kt)
+            pc, pd = peng.cycle_plain(pj, pt)
+            errs["cycle"] = max(errs["cycle"], expect_equal(
+                "cycle (active)", state_pairs(kc, pc) + [("done", kd, pd)]))
+            k8_seen["jumped"] += int((kj.time > st.time + 1).sum())
+            k8_seen["capped"] += int(((kj.time == t) & ~kt).sum()) \
+                if t is not None else 0
+            k8_seen["no_busy"] += int((~st.busy.any((1, 2))).sum())
+            k8_seen["cycled"] += int(kt.sum())
+            k8_seen["frozen"] += int((~kt).sum())
+            k8_seen["over"] += int(ko.sum()) if ko is not None else 0
+    if min(k8_seen.values()) == 0:
+        raise AssertionError(f"the K8 inputs miss a case: {k8_seen}")
+    # K12a: the seven functions from both players' view and a per-lane
+    # player vector
+    type_ids = {n: kenv.utt.get_unit_type(n).ID for n in (
+        "Base", "Barracks", "Worker", "Light", "Heavy", "Ranged")}
+    lane_player = (torch.arange(B, device=dev) % 2).int()
+    for st in [r["s"] for r in records] + [records[-1]["post"]] \
+            + rush_records:
+        for name in EVAL_EXACT + EVAL_FLOAT:
+            for p in (0, 1, lane_player):
+                kv = eval_call(name, st, p, cfg, type_ids, False)
+                pv = eval_call(name, st, p, cfg, type_ids, True)
+                if name in EVAL_EXACT:
+                    expect_equal(name, [("value", kv, pv)])
+                    continue
+                rel = float(((kv - pv).abs() / pv.abs().clamp(min=1)).max())
+                if not rel <= EVAL_RTOL:
+                    raise AssertionError(f"evaluate {name}: {rel} relative")
+                errs["evaluate"] = max(errs["evaluate"],
+                                       float((kv - pv).abs().max()))
+    torch.cuda.synchronize()
+    print(f"    event_jump + cycle(active): {len(k8_inputs)} records x 4 "
+          f"modes equal to plain, cases {k8_seen}; evaluate: 7 functions "
+          f"x {len(records) + 1 + len(rush_records)} records x 3 player "
+          f"views (Sqrt family exact, the others within {EVAL_RTOL} "
+          f"relative)", flush=True)
+
     # K7b on the policy's logits over four recorded ticks (a minibatch of
     # 4096 samples, as phase 7's updates have), upstream weights normal
     lp_recs = records[::5][:LOGPROB_RECORDS]
@@ -575,6 +718,22 @@ def main() -> int:
         nbytes(rs.utype, rs.owner, rs.busy, rs.terrain, rs.carried, rs.uid,
                rs.resources) + B * H * W * 7 * 4,
         3 * wr.iters * B * H * W * 13, INT32_OPS_PER_S)
+    # event_jump (fast_forward's gated step, capped): utype, owner, busy,
+    # aticks, time, done and t_end in; aticks, time and take out
+    jd = torch.rand(B, generator=gen, device=dev) < 0.1
+    jte = st2.time + 30
+    timing["event_jump"] = (
+        lambda: KN.EVENT_JUMP(st2, jte, 512, jd),
+        lambda: PO.event_jump_plain(penv, st2, jte, 512, jd),
+        nbytes(st2.utype, st2.owner, st2.busy, st2.aticks, st2.time, jd, jte,
+               st2.aticks, st2.time) + B)
+    # evaluate (simple_sqrt_eval3, the search bots' default): utype, owner,
+    # hp, carried, the resources and the players in, one float out
+    timing["evaluate"] = (
+        lambda: KN.EVALUATE(cfg, "sqrt3", st, lane_player),
+        lambda: EV.simple_sqrt_eval3(st, lane_player, cfg, plain=True),
+        nbytes(st.utype, st.owner, st.hp, st.carried, st.resources,
+               lane_player) + 4 * B)
     assert A == lg.shape[-1]
     times = {}
     print("    device time per call (queued; host-paced in brackets):")
@@ -618,7 +777,7 @@ def main() -> int:
     torch.cuda.synchronize()
     want = dict(actor=2, decode=2, issue_env=2, cycle=1, epilogue=1,
                 splice_obs=1, policy_sample=0, policy_logprob_fwd=0,
-                policy_logprob_bwd=0, rush=0)
+                policy_logprob_bwd=0, rush=0, event_jump=0, evaluate=0)
     if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
@@ -816,7 +975,9 @@ def main() -> int:
             raise AssertionError(f"{tx_name} update: parameters differ from "
                                  f"the plain path's: {detail}; witness: "
                                  f"{wdetail}")
-        if any(kc[k.name] == 0 for k in KN.KERNELS) or any(pc.values()):
+        if (any(kc[n] == 0 for n in TRAIN_KERNELS)
+                or any(kc[n] for n in kc if n not in TRAIN_KERNELS)
+                or any(pc.values())):
             raise AssertionError(f"{tx_name} update launched {kc}, plain "
                                  f"{pc}")
         steps_done = ucfg.epochs * ucfg.minibatches
@@ -939,16 +1100,225 @@ def main() -> int:
           f"{learn_s:.3f} s; peak device memory {peak / 2**30:.2f} GiB; "
           f"metrics {runs[-1][3]}; {kind}, {smi})", flush=True)
 
-    # ---- [8] results
+    # ---- [8] the round robin of six bots on basesWorkers16x16: 30 ordered
+    # pairs x 34 games = 1020 lanes of one pool batch through
+    # TN.round_robin, the kernel path next to the plain path (same seed) at
+    # a short cap, then timed at the default cap.  round_robin and
+    # play_matches return winners or a table only: their runner is wrapped
+    # (until the end of [10]) to keep each run's winners, final state and
+    # frame count
+    t0 = time.perf_counter()
+    games_fn, games = TN._games_fn, []
+
+    def recording_games_fn(*args, **kw):
+        run = games_fn(*args, **kw)
+
+        def recorded(*a, **k):
+            out = run(*a, **k)
+            games.append(out)
+            return out
+        return recorded
+
+    TN._games_fn = recording_games_fn
+
+    def rr(env, cycles):
+        table = TN.round_robin(env, {n: make_bot(n, env) for n in RR_BOTS},
+                               RR_GAMES, cycles, seed=0)
+        torch.cuda.synchronize()
+        return table, *games.pop()
+
+    def matches(env, bot0, bot1, n_games, cycles, seed, chunk=TN.CHUNK):
+        w = TN.play_matches(env, make_bot(bot0, env), make_bot(bot1, env),
+                            n_games, cycles, seed=seed, chunk=chunk)
+        torch.cuda.synchronize()
+        out = games.pop()
+        if not (out[0].cpu().numpy() == w).all():
+            raise AssertionError("play_matches' winners are not its run's")
+        return out
+
+    def same_tables(name, a, b):
+        if not all((getattr(a, f) == getattr(b, f)).all()
+                   for f in ("wins", "ties", "games")):
+            raise AssertionError(f"{name}: the tables differ:\n{a.table()}"
+                                 f"\n{b.table()}")
+
+    ii, jj = TN.pairings(len(RR_BOTS), RR_GAMES)
+    KN.reset_counts()
+    ktab, kw, ks, kframes = rr(kenv, RR_CHECK_CYCLES)
+    rr_check_counts = KN.counts()
+    ptab, pw, ps, pframes = rr(penv, RR_CHECK_CYCLES)
+    expect_equal("round robin", state_pairs(ks, ps) + [("winners", kw, pw)])
+    same_tables("round robin", ktab, ptab)
+    if (any(rr_check_counts[n] == 0 for n in RR_KERNELS)
+            or any(rr_check_counts[n] for n in rr_check_counts
+                   if n not in RR_KERNELS)):
+        raise AssertionError(f"the round robin launched {rr_check_counts}; "
+                             f"want each of {RR_KERNELS} and no other")
+    print(f"[8] round robin: {len(ii)} lanes x {RR_CHECK_CYCLES} cycles "
+          f"({kframes} frames) identical to the plain path (states, "
+          f"winners, table; {lane_ticks(ks)} game ticks); launches "
+          f"{rr_check_counts} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    # the round robin's 150 cycles end no game: finished games (winners,
+    # frozen lanes) are held in a pairing that ends early, capped a little
+    # after WorkerRush's first wins
+    t1 = time.perf_counter()
+    out = [matches(env, "RandomBiasedAI", "WorkerRush", WIN_CHECK_GAMES,
+                   WIN_CHECK_CYCLES, 3, chunk=32) for env in (kenv, penv)]
+    expect_equal("RandomBiasedAI vs WorkerRush", state_pairs(
+        out[0][1], out[1][1]) + [("winners", out[0][0], out[1][0])])
+    won = int((out[0][0] >= 0).sum())
+    print(f"    RandomBiasedAI vs WorkerRush (play_matches): "
+          f"{WIN_CHECK_GAMES} games to {WIN_CHECK_CYCLES} cycles "
+          f"({out[0][2]} frames) identical to the plain path, {won} won "
+          f"(winners {torch.bincount(out[0][0] + 1, minlength=3).tolist()} "
+          f"draw/p0/p1; game ends at ticks "
+          f"{sorted(set(out[0][1].time.tolist()))[:8]}...) "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    if won == 0:
+        raise AssertionError("no game ended in the winners check")
+    del out
+    KN.reset_counts()
+    t1 = time.perf_counter()
+    rr_table, rw, rs, rframes = rr(kenv, RR_CYCLES)
+    rr_sec = time.perf_counter() - t1
+    rr_counts = KN.counts()
+    if any(rr_counts[n] == 0 for n in RR_KERNELS):
+        raise AssertionError(f"the timed round robin launched {rr_counts}")
+    if rr_table.wins.sum() == 0:
+        raise AssertionError("no game of the round robin was won")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        _, _, pws, _ = rr(kenv, RR_PROFILE_CYCLES)
+        window = (time.perf_counter() - t1) * 1e6
+    busy, kern = device_busy(prof)
+    rr_ticks = lane_ticks(rs)
+    print(rr_table.table())
+    print(f"    round robin game-ticks/s/card: {rr_ticks / rr_sec:.1f} "
+          f"({rr_ticks} lane ticks in {rr_sec:.3f} s, {rframes} frames, "
+          f"{rframes / rr_sec:.1f} frames/s, max_cycles "
+          f"{RR_CYCLES}); device busy {100 * busy / window:.1f}% of a "
+          f"profiled {RR_PROFILE_CYCLES}-cycle run (top kernels: "
+          f"{[(a.key[:24], round(a.self_device_time_total)) for a in kern[:4]]}"
+          f" us); launches {rr_counts}; {kind}, {smi}", flush=True)
+    del ks, ps, rs, pws
+
+    # ---- [9] MonteCarlo (K=12, playout_len 48, the JAX defaults) vs
+    # WorkerRush: one decision on recorded rush states and short games,
+    # the kernel path next to the plain path with the same draws; then
+    # decisions timed on the recorded states
+    t0 = time.perf_counter()
+    mc_state = State(**{f: getattr(rush_records[3], f)[:MC_GAMES]
+                        for f in FIELD_DTYPES})
+    mc_ticks = []
+
+    def mc_bot(env):
+        def scored(s, p):
+            mc_ticks.append(s.time)
+            return EV.simple_sqrt_eval3(s, p, cfg, plain=env.engine.plain)
+        return monte_carlo_bot(env, eval_fn=scored)
+
+    kmc, pmc = mc_bot(kenv), mc_bot(penv)
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    nz = kmc.draw(g, MC_GAMES)
+    KN.reset_counts()
+    ka = kmc(mc_state, 0, nz)
+    mc_counts = KN.counts()
+    pa = pmc(mc_state, 0, nz)
+    expect_equal("MonteCarlo decision", [("actions", ka, pa)])
+    if (any(mc_counts[n] == 0 for n in MC_KERNELS)
+            or any(mc_counts[n] for n in mc_counts if n not in MC_KERNELS)):
+        raise AssertionError(f"a MonteCarlo decision launched {mc_counts}; "
+                             f"want each of {MC_KERNELS} and no other")
+    out = [matches(env, "MonteCarlo", "WorkerRush", MC_GAMES,
+                   MC_CHECK_CYCLES, 22) for env in (kenv, penv)]
+    expect_equal("MonteCarlo games", state_pairs(out[0][1], out[1][1])
+                 + [("winners", out[0][0], out[1][0])])
+    print(f"[9] MonteCarlo: one decision of {MC_GAMES} games (K=12, "
+          f"playout_len 48, {MC_GAMES * 12} playout lanes) and "
+          f"{MC_CHECK_CYCLES}-cycle games vs WorkerRush ({out[0][2]} "
+          f"frames) identical to the plain path; a decision launched "
+          f"{mc_counts} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del out
+    mc_ticks.clear()
+    start = mc_state.time.repeat_interleave(12)
+    kmc(mc_state, 0, kmc.draw(g, MC_GAMES))        # warm-up
+    mc_ticks.clear()
+    draws = [kmc.draw(g, MC_GAMES) for _ in range(MC_TIME_DECISIONS)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for d in draws:
+        kmc(mc_state, 0, d)
+    torch.cuda.synchronize()
+    mc_sec = time.perf_counter() - t1
+    play_ticks = sum(int((t - start).sum()) for t in mc_ticks)
+    print(f"    MonteCarlo decisions/s/card: "
+          f"{MC_GAMES * MC_TIME_DECISIONS / mc_sec:.1f} game-decisions/s "
+          f"({MC_TIME_DECISIONS} decisions of {MC_GAMES} games in "
+          f"{mc_sec:.3f} s); playout ticks/s/card "
+          f"{play_ticks / mc_sec:.1f} ({play_ticks} lane ticks, the first "
+          f"tick included); {kind}, {smi}", flush=True)
+
+    # ---- [10] evaluate: the seeded bf16 policy (64x4) vs WorkerRush, the
+    # kernel path next to the plain path over short games (same seed), then
+    # over 1024 games, timed
+    t0 = time.perf_counter()
+    etrs = []
+    for env in (kenv, penv):
+        tr = PPOTrainer(env, PPOConfig(num_envs=B),
+                        opponent=make_bot("WorkerRush", env),
+                        model=GridnetPolicy(space, 20 + cfg.num_types))
+        tr.model.load_state_dict(net.state_dict())
+        etrs.append(tr)
+    out = []
+    for tr in etrs:
+        wr = evaluate(tr, tr.opponent, EVAL_CHECK_GAMES, EVAL_CHECK_CYCLES)
+        torch.cuda.synchronize()
+        out.append((wr, *games.pop()))
+    expect_equal("evaluate", state_pairs(out[0][2], out[1][2])
+                 + [("winners", out[0][1], out[1][1])])
+    if out[0][0] != out[1][0]:
+        raise AssertionError(f"evaluate: win-rate {out[0][0]}, plain "
+                             f"{out[1][0]}")
+    print(f"[10] evaluate: {EVAL_CHECK_GAMES} games to {EVAL_CHECK_CYCLES} "
+          f"cycles ({out[0][3]} frames) identical to the plain path "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del out
+    etr = etrs[0]
+    KN.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wr = evaluate(etr, etr.opponent, EVAL_GAMES)
+    torch.cuda.synchronize()
+    ev_sec = time.perf_counter() - t1
+    ev_counts = KN.counts()
+    TN._games_fn = games_fn
+    if not 0.0 <= wr <= 1.0 or ev_counts["policy_sample"] == 0 \
+            or ev_counts["event_jump"] == 0:
+        raise AssertionError(f"evaluate: win-rate {wr}, launches "
+                             f"{ev_counts}")
+    print(f"    evaluate: win-rate {wr:.4f} of the seeded bf16 policy vs "
+          f"WorkerRush over {EVAL_GAMES} games (max_cycles 2000) in "
+          f"{ev_sec:.2f} s; launches {ev_counts}; {kind}, {smi}",
+          flush=True)
+
+    # ---- [11] results
     kernels = []
     for k in KN.KERNELS:
         kms, pms, bound, byts, by = times[k.name]
+        new = k.name in ("event_jump", "evaluate")
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
             source=k.source, replaces=k.replaces,
-            launches=upd_counts[k.name],
+            launches=mc_counts[k.name] if new else upd_counts[k.name],
             launches_by_phase={"5": counts[k.name], "6": roll_counts[k.name],
-                               "7": upd_counts[k.name]},
+                               "7": upd_counts[k.name],
+                               "8": rr_counts[k.name],
+                               "9": mc_counts[k.name],
+                               "10": ev_counts[k.name]},
             max_abs_err=errs[k.name], ms=kms, plain_ms=pms, bound_ms=bound,
             bound_by=by, library_ms=None))
     print(json.dumps({"kernels": kernels}))

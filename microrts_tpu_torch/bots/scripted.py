@@ -5,7 +5,9 @@ A bot is ``bot(state, player, u) -> int32 [B, H, W, 7]`` gridnet actions.
 Its randomness comes in as ``u``, float32 uniforms in [0, 1) of shape
 ``[B, H, W, 2]`` made by the caller (e.g. with a ``torch.Generator``), so
 the same draws can be fed to the JAX package in tests.  The rush bots are
-deterministic and take no uniforms.
+deterministic and take no uniforms.  An ``Opponent`` pairs a bot with
+``draw(gen, B)``, which makes the noise the bot reads (the trainer, the
+tournaments and the search bots draw through it).
 
 Not ported yet: ``random_biased_single_unit_bot``, the partially
 observable ``po_*`` rushes (they need the fog of war, ROADMAP queue 1
@@ -56,21 +58,30 @@ def random_bot(env: GridnetEnv, bias: float = 1.0):
 
 @dataclasses.dataclass(frozen=True)
 class Opponent:
-    """A bot as the PPO trainer's opponent: ``bot(state, player, u)`` with
-    ``draws`` uniforms per cell (``u`` float32 ``[B, H, W, draws]``, which
-    the trainer draws or takes from its noise source; JAX's bots draw
-    them from a key instead)."""
+    """A bot that owns its randomness: ``bot(state, player, noise)`` reads
+    what ``draw(gen, B)`` makes for a batch of ``B`` states (None for a
+    deterministic bot).  JAX's bots draw the same kinds of noise from a
+    key instead, so a test can make it there and hand it over."""
     bot: Callable
-    draws: int
+    draw: Callable = lambda gen, batch: None
 
-    def __call__(self, state: State, player: int, u) -> torch.Tensor:
-        return self.bot(state, player, u)
+    def __call__(self, state: State, player: int, noise=None) -> torch.Tensor:
+        return self.bot(state, player, noise)
+
+
+def uniform_draw(env: GridnetEnv) -> Callable:
+    """``draw`` of RandomBiasedAI's two uniforms per cell: float32 ``[B,
+    H, W, 2]`` on the env's device."""
+    def draw(gen: torch.Generator, batch: int) -> torch.Tensor:
+        return torch.rand((batch, env.h, env.w, 2), generator=gen,
+                          device=env.device)
+    return draw
 
 
 def random_opponent(env: GridnetEnv, bias: float = 5.0) -> Opponent:
     """``random_bot(env, bias)`` as an opponent: two uniforms per cell,
     ``uniform(key, (H, W, 2))`` in the JAX package (scripted.py:71)."""
-    return Opponent(random_bot(env, bias), 2)
+    return Opponent(random_bot(env, bias), uniform_draw(env))
 
 
 def kth_legal(L: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
@@ -119,7 +130,7 @@ def random_bot_plain(env: GridnetEnv, state: State, player: int,
 
 def passive_opponent(env: GridnetEnv) -> Opponent:
     """PassiveAI as an opponent: no draws."""
-    return Opponent(passive_bot(env), 0)
+    return Opponent(passive_bot(env))
 
 
 # ----------------------------------------------------------------------
@@ -218,9 +229,8 @@ def rush_bot(env: GridnetEnv, spec: RushSpec = RushSpec()):
 
 
 def rush_opponent(env: GridnetEnv, spec: RushSpec = RushSpec()) -> Opponent:
-    """A rush bot as the PPO trainer's opponent: deterministic, no
-    draws."""
-    return Opponent(rush_bot(env, spec), 0)
+    """A rush bot as an opponent: deterministic, no draws."""
+    return Opponent(rush_bot(env, spec))
 
 
 def rush_bot_plain(env: GridnetEnv, plan: RushPlan, state: State,

@@ -3,8 +3,8 @@
 A copy of ``microrts_tpu.config``'s ``JAVA_AI_ALIASES`` (the reflective
 instantiation analog of GameSettings/Game.java:44-50) and of ``make_bot``
 for the bots the port has.  ``make_bot`` returns a
-``bots.scripted.Opponent``: the bot and the number of uniforms it draws
-per cell.  A name the JAX package knows but the port has not ported raises
+``bots.scripted.Opponent``: the bot and the draw of the noise it reads.
+A name the JAX package knows but the port has not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -75,7 +75,9 @@ _RUSH = dict(
     SimpleEconomyRush="simple_economy_rush", CRush_V1="crush_v1",
     CRush_V2="crush_v2")
 RUSH_BOTS = tuple(_RUSH)
-PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI") + RUSH_BOTS
+SEARCH_BOTS = ("MonteCarlo",)
+PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI") + RUSH_BOTS \
+    + SEARCH_BOTS
 
 # names the JAX package has and the port not yet: the ROADMAP.md queue 1
 # item that ports them
@@ -90,7 +92,7 @@ _NOT_PORTED = dict(
         "SCV", "SCVAdaptive", "AHTN", "LSI", "PuppetNoPlan",
         "PuppetSearchMCTS", "PuppetSearchAB", "BS1_NaiveMCTS",
         "BS2_NaiveMCTS", "BS3_NaiveMCTS", "PortfolioAI", "PGSAI",
-        "MonteCarlo", "NaiveMCTS", "ContinuingNaiveMCTS",
+        "NaiveMCTS", "ContinuingNaiveMCTS",
         "TwoPhaseNaiveMCTS", "InformedNaiveMCTS", "MLPSMCTS",
         "UCTFirstPlayUrgency", "UCTUnitActions", "UCT", "DownsamplingUCT",
         "ABCD", "SampledABCD", "IDABCD", "RTMinimax", "IDRTMinimax",
@@ -109,7 +111,10 @@ def make_bot(name: str, env):
     if name == "RandomBiasedAI":
         return S.random_opponent(env, 5.0)
     if name in _RUSH:
-        return S.Opponent(getattr(S, _RUSH[name])(env), 0)
+        return S.Opponent(getattr(S, _RUSH[name])(env))
+    if name == "MonteCarlo":
+        from .bots.search import monte_carlo_bot
+        return monte_carlo_bot(env)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name} is not ported yet: ROADMAP.md queue 1 "

@@ -15,7 +15,7 @@ and UTT v3's random damage are not, and raise.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -263,14 +263,24 @@ class Engine:
     # ------------------------------------------------------------------
     # cycle (GameState.cycle :553-571 + UnitAction.execute :338-465)
 
-    def cycle(self, state: State) -> Tuple[State, torch.Tensor]:
+    def cycle(self, state: State, active: Optional[torch.Tensor] = None
+              ) -> Tuple[State, torch.Tensor]:
         """One game tick (kernel.py:508-716); returns (state', gameover).
+        With ``active`` (bool ``[B]``), the envs whose flag is off keep
+        their state and read gameover False (the playouts' frozen lanes).
         UTT v3's random damage is not ported: both paths raise."""
         if self._use_kernel(state.utype):
-            return KN.CYCLE(self.cfg, state)
-        return self.cycle_plain(state)
+            return KN.CYCLE(self.cfg, state, active)
+        return self.cycle_plain(state, active)
 
-    def cycle_plain(self, state: State) -> Tuple[State, torch.Tensor]:
+    def cycle_plain(self, state: State, active: Optional[torch.Tensor] = None
+                    ) -> Tuple[State, torch.Tensor]:
+        new, done = self._cycle_plain(state)
+        if active is None:
+            return new, done
+        return state.select(active, new), done & active
+
+    def _cycle_plain(self, state: State) -> Tuple[State, torch.Tensor]:
         if not self.cfg.det_damage:
             raise NotImplementedError(
                 "cycle: random damage (UTT v3) is not ported yet")

@@ -100,17 +100,20 @@ class GridnetEnv:
                         for f, v in vars(self.init_state).items()})
 
     # ------------------------------------------------------------------
-    def decode(self, state: State, actions: torch.Tensor, player: int
-               ) -> Candidates:
+    def decode(self, state: State, actions: torch.Tensor, player: int,
+               none_duration: Optional[int] = None) -> Candidates:
         """PlayerAction.fromVectorAction + fillWithNones(gs, player, 1)
         for one player, against the in-flight claims and produce costs
-        of ``state`` (gridnet.py:139-343)."""
+        of ``state`` (gridnet.py:139-343).  With ``none_duration``, every
+        NONE candidate gets that parameter: the bot path's NONE(10)
+        (ops/playout.py:81-86)."""
         if self.engine._use_kernel(actions):
-            return KN.DECODE(self.cfg, state, actions, player)
-        return self.decode_plain(state, actions, player)
+            return KN.DECODE(self.cfg, state, actions, player, none_duration)
+        return self.decode_plain(state, actions, player, none_duration)
 
     def decode_plain(self, state: State, actions: torch.Tensor,
-                     player: int) -> Candidates:
+                     player: int, none_duration: Optional[int] = None
+                     ) -> Candidates:
         cfg = self.cfg.engine
         H, W, T = self.h, self.w, cfg.num_types
         R = cfg.max_range
@@ -188,10 +191,12 @@ class GridnetEnv:
         keep = ((cand_ok & (at != MOVE) & (at != PRODUCE))
                 | move_kept | prod_kept)
         pad = present & ~keep
+        atype = torch.where(keep, at, torch.where(pad, NONE, -1)).to(I32)
+        aparam = torch.where(keep, aparam, torch.where(pad, 1, 0)).to(I32)
+        if none_duration is not None:
+            aparam = torch.where(atype == NONE, int(none_duration), aparam)
         return Candidates(
-            atype=torch.where(keep, at, torch.where(pad, NONE, -1)).to(I32),
-            aparam=torch.where(keep, aparam,
-                               torch.where(pad, 1, 0)).to(I32),
+            atype=atype, aparam=aparam,
             atx=atx.to(I32), aty=aty.to(I32), aptype=aptype.to(I32),
             rank=torch.where(keep, rank,
                              torch.where(pad, HW + rank, INF)).to(I32))

@@ -7,12 +7,13 @@ at first use (all sources at once, one ``nvcc`` each), and loaded with
 
 The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
 ``EPILOGUE``, ``SPLICE_OBS``, ``SAMPLE``, ``LOGPROB``, ``LOGPROB_BWD``,
-``RUSH``) take CUDA tensors only: they
+``RUSH``, ``EVENT_JUMP``, ``EVALUATE``) take CUDA tensors only: they
 check device, dtype, shape and contiguity, allocate the outputs, launch on
 PyTorch's current stream, raise if the launch reports a CUDA error, and
-count their launches in ``.launches``.  The callers in ``engine``, ``env``,
-``bots`` and ``models`` send CPU tensors to the plain PyTorch versions
-instead; nothing falls back from a failed build or launch.
+count their launches in ``.launches``.  The callers in ``engine``,
+``env``, ``bots``, ``ops`` and ``models`` send CPU tensors to the plain
+PyTorch versions instead; nothing falls back from a failed build or
+launch.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 # the kernel sources (csrc/<name>.cu), one shared library each
 NAMES = ("actor", "decode", "issue_env", "cycle", "epilogue",
-         "splice_obs", "policy_sample", "policy_logprob", "rush")
+         "splice_obs", "policy_sample", "policy_logprob", "rush", "event",
+         "evaluation")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAXT = 16
@@ -144,6 +146,11 @@ class _RushSpec(ctypes.Structure):
         ("off_dx", ctypes.c_int * MAXOFF), ("off_dy", ctypes.c_int * MAXOFF)]
 
 
+class _EvalSpec(ctypes.Structure):
+    _fields_ = [("fn", ctypes.c_int), ("ids", ctypes.c_int * 6),
+                ("w", ctypes.c_float * 8)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -156,9 +163,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     entries = {
         "actor": dict(actor=[cfg, st, _I, _I, _P,
                              ctypes.POINTER(ctypes.c_float), _P, _P, _P]),
-        "decode": dict(decode=[cfg, st, _I, _I, _P, _I, cd, _P]),
+        "decode": dict(decode=[cfg, st, _I, _I, _P, _I, _I, cd, _P]),
         "issue_env": dict(issue_env=[cfg, st, _I, cd, st, _P]),
-        "cycle": dict(cycle=[cfg, st, _I, st, _P, _P]),
+        "cycle": dict(cycle=[cfg, st, _I, st, _P, _P, _P]),
         "epilogue": dict(epilogue=[cfg, ctypes.POINTER(_EpiCfg), _I, _P, _P,
                                    cd, cd, _P, _P, _P, _P, _I, _P, _P, _I,
                                    _P, _P, _P]),
@@ -171,6 +178,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             policy_logprob_bwd=[space, _L, _P, _P, _P, _P, _P, _P, _P]),
         "rush": dict(rush=[cfg, ctypes.POINTER(_RushSpec), st, _I, _I, _P,
                            _P]),
+        "event": dict(event_jump=[_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _P, _P, _P, _P, _P]),
+        "evaluation": dict(evaluate=[cfg, ctypes.POINTER(_EvalSpec), _P, _P,
+                                     _P, _P, _P, _P, _I, _P, _P]),
     }[name]
     for entry, argtypes in entries.items():
         fn = getattr(lib, f"{entry}_launch")
@@ -290,9 +301,13 @@ class _Actor(Kernel):
 
 class _Decode(Kernel):
     def __call__(self, env_cfg, state: State, actions: torch.Tensor,
-                 player: int) -> Candidates:
+                 player: int, none_duration: Optional[int] = None
+                 ) -> Candidates:
         """Gridnet actions int32 ``[B, H, W, 7]`` of ``player`` ->
-        Candidates (six new int32 planes)."""
+        Candidates (six new int32 planes).  With ``none_duration``, every
+        NONE candidate gets that parameter (the bot path's padding)."""
+        if none_duration is not None and none_duration < 0:
+            raise ValueError("decode: none_duration must be >= 0")
         cfg = env_cfg.engine
         sp, B = _state_p(state, cfg)
         dev = state.utype.device
@@ -305,6 +320,7 @@ class _Decode(Kernel):
             self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
                          int(player), actions.data_ptr(),
                          int(env_cfg.max_produce_scan),
+                         -1 if none_duration is None else int(none_duration),
                          ctypes.byref(_cand_p(out, (B, H, W), dev)),
                          _stream(dev))
         return out
@@ -341,20 +357,26 @@ class _IssueEnv(Kernel):
 
 
 class _Cycle(Kernel):
-    def __call__(self, cfg: EngineConfig, state: State
+    def __call__(self, cfg: EngineConfig, state: State,
+                 active: Optional[torch.Tensor] = None
                  ) -> Tuple[State, torch.Tensor]:
         """One tick.  Returns (new State, gameover bool [B]); terrain,
-        order_ctr and cancel_ctr are the input's tensors."""
+        order_ctr and cancel_ctr are the input's tensors.  With ``active``
+        (bool ``[B]``), the envs whose flag is off are copied unchanged
+        and their gameover reads False."""
         if not cfg.det_damage:
             raise NotImplementedError("cycle kernel: UTT v3 random damage")
         sp, B = _state_p(state, cfg)
         dev = state.utype.device
+        act = None
+        if active is not None:
+            act = _check("active", active, torch.bool, (B,), dev)
         out = _fresh(state, _CYCLE_OUT)
         op, _ = _state_p(out, cfg)
         done = torch.empty(B, dtype=torch.bool, device=dev)
         with torch.cuda.device(dev):
             self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
-                         ctypes.byref(op), done.data_ptr(), _stream(dev))
+                         ctypes.byref(op), done.data_ptr(), act, _stream(dev))
         return out, done
 
 
@@ -605,6 +627,75 @@ class _Rush(Kernel):
         return act
 
 
+class _EventJump(Kernel):
+    def __call__(self, state: State, t_end: Optional[torch.Tensor],
+                 max_skip: int, done: Optional[torch.Tensor] = None):
+        """The closed-form jump to the next action completion.
+
+        ``t_end`` int32 ``[B]`` or None (no cap).  With ``done`` (bool
+        ``[B]``) this is ``fast_forward``'s gated event step (lanes done,
+        at a decision point or at ``t_end`` stay put), else
+        ``playout_step``'s jump.  Returns (the jumped State: new ``time``
+        and ``aticks``, the other fields the input's; take bool ``[B]``,
+        whether the lane runs the completion tick's cycle; gameover of the
+        jumped state bool ``[B]``, or None with ``done``)."""
+        B, H, W = state.utype.shape
+        dev = state.utype.device
+        plane = (B, H, W)
+        ptrs = [_check(f, getattr(state, f), FIELD_DTYPES[f], plane, dev)
+                for f in ("utype", "owner", "busy", "aticks")]
+        ptrs.append(_check("time", state.time, torch.int32, (B,), dev))
+        dp = te = None
+        if done is not None:
+            dp = _check("done", done, torch.bool, (B,), dev)
+        if t_end is not None:
+            te = _check("t_end", t_end, torch.int32, (B,), dev)
+        out = _fresh(state, ("aticks", "time"))
+        take = torch.empty(B, dtype=torch.bool, device=dev)
+        over = (None if done is not None
+                else torch.empty(B, dtype=torch.bool, device=dev))
+        with torch.cuda.device(dev):
+            self._launch(B, H * W, *ptrs, dp, te, int(max_skip),
+                         int(done is not None), out.aticks.data_ptr(),
+                         out.time.data_ptr(), take.data_ptr(),
+                         None if over is None else over.data_ptr(),
+                         _stream(dev))
+        return out, take, over
+
+
+# evaluation function name -> the evaluate kernel's code
+# (csrc/evaluation.cu)
+EVAL_CODES = {"simple": 0, "sqrt": 1, "sqrt2": 2, "sqrt3": 3, "opt": 4,
+              "opt_upper_bound": 5, "lanchester": 6}
+
+
+class _Evaluate(Kernel):
+    def __call__(self, cfg: EngineConfig, fn: str, state: State,
+                 player: torch.Tensor, type_ids=(-1,) * 6,
+                 weights=(0.0,) * 8) -> torch.Tensor:
+        """The evaluation function ``fn`` (``EVAL_CODES``) of every env
+        from ``player``'s view (int32 ``[B]`` of 0 or 1): float32
+        ``[B]``.  ``type_ids`` (Base, Barracks, Worker, Light, Ranged,
+        Heavy type indices, -1 absent) and ``weights`` (base, rax, worker,
+        light, ranged, heavy, carried, mined) serve ``lanchester``."""
+        B, H, W = state.utype.shape
+        dev = state.utype.device
+        plane = (B, H, W)
+        ptrs = [_check(f, getattr(state, f), FIELD_DTYPES[f], plane, dev)
+                for f in ("utype", "owner", "hp", "carried")]
+        ptrs.append(_check("resources", state.resources, torch.int32, (B, 2),
+                           dev))
+        ptrs.append(_check("player", player, torch.int32, (B,), dev))
+        spec = _EvalSpec(fn=EVAL_CODES[fn])
+        spec.ids[:] = [int(v) for v in type_ids]
+        spec.w[:] = [float(v) for v in weights]
+        out = torch.empty(B, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(spec), *ptrs,
+                         B, out.data_ptr(), _stream(dev))
+        return out
+
+
 # ``replaces``: the JAX function each kernel stands for (file:line)
 ACTOR = _Actor("actor", "microrts_tpu/engine/kernel.py:742")  # + scripted.py:69
 DECODE = _Decode("decode", "microrts_tpu/env/gridnet.py:139")
@@ -624,8 +715,14 @@ LOGPROB_BWD = _LogprobBwd("policy_logprob_bwd",
                           "microrts_tpu/train/ppo.py:190", "policy_logprob")
 # + scripted.py:361/370, ops/fields.py:23/126
 RUSH = _Rush("rush", "microrts_tpu/bots/scripted.py:190")
+# + playout.py:109 (fast_forward's event step)
+EVENT_JUMP = _EventJump("event_jump", "microrts_tpu/ops/playout.py:58",
+                        "event")
+# ops/evaluation.py:25-167, the seven functions
+EVALUATE = _Evaluate("evaluate", "microrts_tpu/ops/evaluation.py:77",
+                     "evaluation")
 KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE,
-           LOGPROB, LOGPROB_BWD, RUSH)
+           LOGPROB, LOGPROB_BWD, RUSH, EVENT_JUMP, EVALUATE)
 
 
 def reset_counts() -> None:

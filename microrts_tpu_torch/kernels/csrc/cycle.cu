@@ -24,13 +24,44 @@
 //     newborn IDs;
 //  4. per cell: the next board, with mover and newborn arrivals gathered
 //     from the 4 neighbours, and the unit counts for gameover.
+// With `active` (bool [B], may be null), an env whose flag is off copies
+// its input to the output and reads done = false (the playouts' frozen
+// lanes, microrts_tpu/ops/playout.py:104 and :172).
 #include "common.cuh"
 
-__global__ void cycle_kernel(Cfg cfg, StateP s, StateP o, uint8_t* done) {
+__global__ void cycle_kernel(Cfg cfg, StateP s, StateP o, uint8_t* done,
+                             const uint8_t* active) {
   const int H = cfg.H, W = cfg.W, T = cfg.T, R = cfg.R;
   const int HW = H * W;
   const int b = blockIdx.x;
   const size_t base = (size_t)b * HW;
+  if (active && !active[b]) {   // uniform over the block: no sync skipped
+    for (int c = threadIdx.x; c < HW; c += blockDim.x) {
+      const size_t i = base + c;
+      o.utype[i] = s.utype[i];
+      o.owner[i] = s.owner[i];
+      o.hp[i] = s.hp[i];
+      o.carried[i] = s.carried[i];
+      o.uid[i] = s.uid[i];
+      o.busy[i] = s.busy[i];
+      o.atype[i] = s.atype[i];
+      o.aparam[i] = s.aparam[i];
+      o.atx[i] = s.atx[i];
+      o.aty[i] = s.aty[i];
+      o.aptype[i] = s.aptype[i];
+      o.aticks[i] = s.aticks[i];
+      o.aorder[i] = s.aorder[i];
+      o.atime[i] = s.atime[i];
+    }
+    if (threadIdx.x == 0) {
+      o.time[b] = s.time[b];
+      o.resources[2 * b] = s.resources[2 * b];
+      o.resources[2 * b + 1] = s.resources[2 * b + 1];
+      o.next_id[b] = s.next_id[b];
+      done[b] = 0;
+    }
+    return;
+  }
   extern __shared__ unsigned char smem[];
   unsigned char* p = smem;
   int32_t* s_aorder = carve<int32_t>(p, HW);
@@ -283,13 +314,14 @@ __global__ void cycle_kernel(Cfg cfg, StateP s, StateP o, uint8_t* done) {
 }
 
 extern "C" int cycle_launch(const Cfg* cfg, const StateP* s, int batch,
-                            const StateP* out, uint8_t* done, void* stream) {
+                            const StateP* out, uint8_t* done,
+                            const uint8_t* active, void* stream) {
   const size_t HW = (size_t)cfg->H * cfg->W;
   size_t smem = 7 * carve_bytes(4 * HW) + 5 * carve_bytes(2 * HW)
                 + 6 * carve_bytes(HW) + 16;
   cudaError_t e = allow_smem(cycle_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   cycle_kernel<<<batch, block_threads((int)HW), smem, (cudaStream_t)stream>>>(
-      *cfg, *s, *out, done);
+      *cfg, *s, *out, done, active);
   return (int)cudaGetLastError();
 }

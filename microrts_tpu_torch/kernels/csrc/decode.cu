@@ -20,12 +20,15 @@
 // ones in cell order: warp 0 finds them with ballots, and one lane runs
 // the order-sensitive budget recurrence over them (zero-skip, same-slot
 // block).  This replaces the packed-key min extraction of the TPU version.
+// none_duration >= 0 gives every NONE candidate that duration: the bot
+// path's NONE(10) of playout_step (microrts_tpu/ops/playout.py:81-86);
+// the RL path passes -1 and keeps decode's own parameters.
 #include "common.cuh"
 
 #define MAXKP 64
 
 __global__ void decode_kernel(Cfg cfg, StateP s, int me, const int32_t* act,
-                              int kp, CandP out) {
+                              int kp, int none_duration, CandP out) {
   const int H = cfg.H, W = cfg.W, T = cfg.T, R = cfg.R, D = 2 * cfg.R + 1;
   const int HW = H * W, L = HW + 2 * W;
   const int OFF[4] = {-W, 1, W, -1};
@@ -148,16 +151,19 @@ __global__ void decode_kernel(Cfg cfg, StateP s, int me, const int32_t* act,
     const bool keep = ((f & F_OK) && at != A_MOVE && at != A_PRODUCE)
                       || move_kept || (f & F_KEPT);
     const bool pad = (f & F_PRESENT) && !keep;
-    out.atype[base + c] = keep ? at : (pad ? A_NONE : -1);
-    out.aparam[base + c] = keep ? aparam : (pad ? 1 : 0);
+    const int atype = keep ? at : (pad ? A_NONE : -1);
+    out.atype[base + c] = atype;
+    out.aparam[base + c] = (none_duration >= 0 && atype == A_NONE)
+                               ? none_duration
+                               : (keep ? aparam : (pad ? 1 : 0));
     out.rank[base + c] = keep ? c : (pad ? HW + c : INF_I);
   }
 }
 
 extern "C" int decode_launch(const Cfg* cfg, const StateP* s, int batch,
                              int player, const int32_t* act,
-                             int max_produce_scan, const CandP* out,
-                             void* stream) {
+                             int max_produce_scan, int none_duration,
+                             const CandP* out, void* stream) {
   const int HW = cfg->H * cfg->W, L = HW + 2 * cfg->W;
   if (max_produce_scan > MAXKP || L > 32767) return (int)cudaErrorInvalidValue;
   size_t smem = carve_bytes(L) + 2 * carve_bytes(4 * (size_t)L)
@@ -165,6 +171,6 @@ extern "C" int decode_launch(const Cfg* cfg, const StateP* s, int batch,
   cudaError_t e = allow_smem(decode_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   decode_kernel<<<batch, block_threads(HW), smem, (cudaStream_t)stream>>>(
-      *cfg, *s, player, act, max_produce_scan, *out);
+      *cfg, *s, player, act, max_produce_scan, none_duration, *out);
   return (int)cudaGetLastError();
 }

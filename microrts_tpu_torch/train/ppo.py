@@ -86,8 +86,9 @@ class Transition(NamedTuple):
 
 class StepNoise(NamedTuple):
     """One rollout step's randomness: player 0's gumbels float32 ``[N, H,
-    W, A]`` and the opponent's draws (uniforms ``[N, H, W, draws]`` for a
-    scripted bot, gumbels for self-play, None for no opponent)."""
+    W, A]`` and the opponent's draws (what its ``draw`` makes: uniforms
+    ``[N, H, W, 2]`` for a random bot, None for a deterministic one;
+    gumbels for self-play; None for no opponent)."""
     gumbel: torch.Tensor
     opp: Optional[torch.Tensor]
 
@@ -97,8 +98,8 @@ class PPOTrainer:
                  opponent=None, selfplay: bool = False,
                  model: Optional[GridnetPolicy] = None,
                  tx: Optional[optim.Transform] = None):
-        """``opponent``: a ``bots.scripted.Opponent`` (a bot and its
-        uniforms per cell), or None for an opponent that never acts.
+        """``opponent``: a ``bots.scripted.Opponent`` (a bot and the draw
+        of its noise), or None for an opponent that never acts.
         ``tx``: the optimizer (``train.optim``), by default
         ``chain(clip_by_global_norm(max_grad_norm), adam(lr))``."""
         self.env = env
@@ -172,9 +173,8 @@ class PPOTrainer:
         g = gumbel_noise((B, H, W, self.space.total), gen, dev)
         if self.selfplay:
             opp = gumbel_noise((B, H, W, self.space.total), gen, dev)
-        elif self.opponent is not None and self.opponent.draws:
-            opp = torch.rand((B, H, W, self.opponent.draws), generator=gen,
-                             device=dev)
+        elif self.opponent is not None:
+            opp = self.opponent.draw(gen, B)
         else:
             opp = None
         return StepNoise(g, opp)

@@ -3,7 +3,8 @@
     python -m microrts_tpu_torch.train.run [--map maps/16x16/basesWorkers16x16.xml]
         [--opponent WorkerRush] [--updates 50] [--num-envs 64]
         [--rollout-len 128] [--lr 2.5e-4] [--seed 0] [--ckpt out.npz]
-        [--ckpt-every N] [--resume in.npz] [--selfplay] [--cpu]
+        [--ckpt-every N] [--resume in.npz] [--eval-every N]
+        [--eval-games 8] [--selfplay] [--cpu]
 
 The port of ``python -m microrts_tpu.train.run``, with its flags and its
 per-update line.  It trains the bf16 ``GridnetPolicy`` (width 64, 4
@@ -12,16 +13,20 @@ raises, and ``--cpu`` runs the plain PyTorch path on the CPU instead (it
 never falls back on its own).  The default map is basesWorkers16x16 (the
 JAX CLI's is basesWorkers8x8).  Checkpoints are npz files in the JAX
 package's layout, so either package resumes the other's.
+``--eval-every N`` plays ``--eval-games`` games of the sampled policy
+against the opponent every N updates (``evaluate``, through
+``eval/tournament.play_matches``) and prints the win-rate.
 
-Not ported yet: ``--sharded`` (ROADMAP.md queue 1 item 14) and
-``--eval-every`` (its ``evaluate`` plays ``eval/tournament.play_matches``,
-queue 1 item 7); both raise ``NotImplementedError``.
+Not ported yet: ``--sharded`` (ROADMAP.md queue 1 item 14); it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 
 def main(argv=None):
@@ -37,6 +42,7 @@ def main(argv=None):
     p.add_argument("--ckpt-every", type=int, default=0)
     p.add_argument("--resume", help="load params from npz")
     p.add_argument("--eval-every", type=int, default=0)
+    p.add_argument("--eval-games", type=int, default=8)
     p.add_argument("--sharded", action="store_true")
     p.add_argument("--selfplay", action="store_true",
                    help="mirror self-play: player 1 uses the same policy")
@@ -46,12 +52,6 @@ def main(argv=None):
     if args.sharded:
         raise NotImplementedError(
             "--sharded is not ported yet: ROADMAP.md queue 1 item 14")
-    if args.eval_every:
-        raise NotImplementedError(
-            "--eval-every is not ported yet: evaluate needs "
-            "eval/tournament.play_matches, ROADMAP.md queue 1 item 7")
-
-    import torch
 
     from ..config import make_bot
     from ..env.gridnet import GridnetEnv
@@ -91,10 +91,59 @@ def main(argv=None):
               f"env-steps/s {sps:,.0f}", flush=True)
         if args.ckpt and args.ckpt_every and u % args.ckpt_every == 0:
             save_params(args.ckpt, trainer.model)
+        if args.eval_every and u % args.eval_every == 0:
+            wr = evaluate(trainer, opponent, args.eval_games)
+            print(f"  eval: win-rate {wr:.2f} vs {args.opponent}",
+                  flush=True)
     if args.ckpt:
         save_params(args.ckpt, trainer.model)
         print(f"params saved to {args.ckpt}")
     return trainer, ts
+
+
+def policy_opponent(trainer, sample: bool = True):
+    """The trainer's policy as player 0's bot (``bots.scripted.Opponent``):
+    player 0's one-hot observation and masks through the model, then
+    ``sample_action`` (K7) with the gumbels its ``draw`` makes, or
+    ``greedy_action``."""
+    from ..bots.scripted import Opponent
+    from ..models.gridnet_policy import (greedy_action, gumbel_noise,
+                                         sample_action)
+
+    env, space = trainer.env, trainer.space
+
+    @torch.no_grad()
+    def bot(state, player, gumbel):
+        logits, _ = trainer.model(trainer._obs(state))
+        mask = trainer._mask(state)
+        if sample:
+            return sample_action(logits, mask, space, gumbel,
+                                 plain=trainer.plain)[0]
+        return greedy_action(logits, mask, space, plain=trainer.plain)
+
+    def draw(gen, batch):
+        if not sample:
+            return None
+        return gumbel_noise((batch, env.h, env.w, space.total), gen,
+                            env.device)
+
+    return Opponent(bot, draw)
+
+
+def evaluate(trainer, opponent, n_games: int, max_cycles: int = 2000,
+             sample: bool = True, noise=None) -> float:
+    """Policy win-rate vs ``opponent`` (a ``bots.scripted.Opponent``) over
+    ``n_games`` lockstep games (JAX train/run.py:95-120).
+
+    ``sample=True`` plays the trained object itself, PPO's stochastic
+    policy; ``sample=False`` the argmax policy.  The noise comes from
+    ``play_matches``' generator (seed 0), or from ``noise`` (see
+    ``eval/tournament.play_matches``)."""
+    from ..eval.tournament import play_matches
+
+    w = play_matches(trainer.env, policy_opponent(trainer, sample), opponent,
+                     n_games, max_cycles, noise=noise)
+    return float((w == 0).mean())
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ nor the JAX package, so it runs where only the port is installed::
 Tolerance: exact, except the policy sampler's and K7b's logprob and
 entropy (fp32 sums in another order than the plain version's: 1e-5
 relative + 1e-4 absolute), K7b's gradient of the logits (1e-4 relative +
-1e-5 absolute, against autograd through the plain version), and the
+1e-5 absolute, against autograd through the plain version), the float
+evaluation functions of K12a (Simple, Opt, Lanchester: float32 sums in
+another order, within 1e-5 of the larger of the value and 1; the Sqrt
+family and the upper bound sum small integers and are exact), and the
 parameters after a PPO update on the kernel path against the plain path
 (see ``test_update_kernel_path_matches_plain_on_card``).
 """
@@ -72,7 +75,8 @@ def test_kernel_path_equals_plain_on_card(map_rel):
     assert KN.counts() == dict(
         actor=4 * ticks, decode=2 * ticks, issue_env=2 * ticks, cycle=ticks,
         epilogue=ticks, splice_obs=ticks, policy_sample=0,
-        policy_logprob_fwd=0, policy_logprob_bwd=0, rush=0)
+        policy_logprob_fwd=0, policy_logprob_bwd=0, rush=0, event_jump=0,
+        evaluate=0)
 
 
 def _states(env, B, ticks, seed):
@@ -390,7 +394,10 @@ def test_update_kernel_path_matches_plain_on_card():
         if plain:
             assert not any(counts.values()), counts
         else:
-            assert all(v > 0 for v in counts.values()), counts
+            # every kernel of training; the decision-frame path's not
+            assert all(v > 0 for n, v in counts.items()
+                       if n not in ("event_jump", "evaluate")), counts
+            assert counts["event_jump"] == counts["evaluate"] == 0, counts
             assert counts["policy_logprob_fwd"] == 4
             assert counts["policy_logprob_bwd"] == 4
             assert counts["rush"] == 4
@@ -428,3 +435,150 @@ def test_new_kernels_reject_bad_input_on_card():
     plan = S.worker_rush(env).plan
     with pytest.raises(TypeError):
         KN.RUSH(env.cfg.engine, plan, s.replace(uid=s.uid.short()), 0)
+
+
+def _random_states(env, B, ticks, seed):
+    """Plain-path states of a RandomBiasedAI trajectory on the card, every
+    tenth tick from the tenth, and the initial state (no busy unit)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bot = random_bot(env, BIAS)
+    s = env.reset(B)
+    out = [s]
+    for t in range(ticks):
+        u0, u1 = (torch.rand((B, env.h, env.w, 2), generator=g,
+                             device="cuda") for _ in (0, 1))
+        s, _, _ = env.step(s, bot(s, 0, u0), bot(s, 1, u1))
+        if t % 10 == 9:
+            out.append(s)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_event_jump_evaluate_cycle_active_equal_plain_on_card(map_rel):
+    """K8 in both modes with and without a cap, the cycle kernel's active
+    flag, decode's NONE duration and K12a's seven functions against their
+    plain versions (B=64)."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.ops import evaluation as EV
+    from microrts_tpu_torch.ops import playout as PO
+    B = 64
+    kenv = GridnetEnv(asset_path(map_rel), device="cuda")
+    penv = GridnetEnv(asset_path(map_rel), device="cuda", plain=True)
+    cfg = kenv.cfg.engine
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    ids = {n: kenv.utt.get_unit_type(n).ID for n in (
+        "Base", "Barracks", "Worker", "Light", "Heavy", "Ranged")}
+    lanes = (torch.arange(B, device="cuda") % 2).int()
+    for s in _random_states(penv, B, 60, 1):
+        te = s.time + torch.randint(-2, 30, (B,), generator=g, device="cuda",
+                                    dtype=torch.int32)
+        dn = torch.rand(B, generator=g, device="cuda") < 0.2
+        for d, t in ((None, None), (None, te), (dn, None), (dn, te)):
+            k, p = (KN.EVENT_JUMP(s, t, 512, d),
+                    PO.event_jump_plain(penv, s, t, 512, d))
+            assert k[0].equal(p[0]) == (True, "")
+            assert torch.equal(k[1], p[1])
+            if d is None:
+                assert torch.equal(k[2], p[2])
+            else:
+                assert k[2] is None and p[2] is None
+            kc, kd = KN.CYCLE(cfg, k[0], k[1])
+            pc, pd = penv.engine.cycle_plain(p[0], p[1])
+            assert kc.equal(pc) == (True, "") and torch.equal(kd, pd)
+        a = random_bot(penv, BIAS)(s, 0, torch.rand(
+            (B, kenv.h, kenv.w, 2), generator=g, device="cuda"))
+        for nd in (None, 10):
+            kc, pc = KN.DECODE(kenv.cfg, s, a, 0, nd), penv.decode_plain(
+                s, a, 0, nd)
+            for f in ("atype", "aparam", "atx", "aty", "aptype", "rank"):
+                assert torch.equal(getattr(kc, f), getattr(pc, f)), f
+        for name in ("simple_eval", "simple_sqrt_eval", "simple_sqrt_eval2",
+                     "simple_sqrt_eval3", "simple_opt_eval",
+                     "lanchester_eval"):
+            fn = getattr(EV, name)
+            for p in (0, 1, lanes):
+                extra = (ids,) if name == "lanchester_eval" else ()
+                kv = fn(s, p, cfg, *extra)
+                pv = fn(s, p, cfg, *extra, plain=True)
+                if "sqrt" in name:
+                    assert torch.equal(kv, pv), name
+                else:
+                    assert ((kv - pv).abs()
+                            <= 1e-5 * pv.abs().clamp(min=1)).all(), name
+        assert torch.equal(EV.simple_opt_upper_bound(s, cfg),
+                           EV.simple_opt_upper_bound(s, cfg, plain=True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_decision_frame_path_equals_plain_on_card():
+    """A round robin of three bots (6 lanes, 80 cycles) and MonteCarlo
+    (K=4, playout_len 16) against WorkerRush (4 games, 12 cycles) through
+    the kernels equal the plain path with the same generator: winners and
+    final states; the tournament launches event_jump, MonteCarlo also
+    evaluate."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots.search import monte_carlo_bot
+    from microrts_tpu_torch.eval import tournament as TN
+    path = asset_path("maps/8x8/basesWorkers8x8.xml")
+    names = ("RandomBiasedAI", "WorkerRush", "LightRush")
+    ii, jj = TN.pairings(3, 1)
+    z = torch.zeros(4, dtype=torch.int64)
+    out = []
+    for plain in (False, True):
+        env = GridnetEnv(path, device="cuda", plain=plain)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        KN.reset_counts()
+        rr = TN._games_fn(env, [make_bot(n, env) for n in names], 80)(
+            torch.from_numpy(ii), torch.from_numpy(jj), g)
+        rr_counts = KN.counts()
+        KN.reset_counts()
+        mc = TN._games_fn(env, [monte_carlo_bot(env, 4, 16),
+                                make_bot("WorkerRush", env)], 12,
+                          fixed_pair=True)(z, z + 1, g)
+        mc_counts = KN.counts()
+        if plain:
+            assert not any(rr_counts.values()) and not any(
+                mc_counts.values())
+        else:
+            assert rr_counts["event_jump"] > 0 and rr_counts["rush"] > 0
+            assert rr_counts["evaluate"] == 0
+            assert mc_counts["event_jump"] > 0 and mc_counts["evaluate"] > 0
+        out.append((rr, mc))
+    torch.cuda.synchronize()
+    for (kw, ks, _), (pw, ps, _) in zip(out[0], out[1]):
+        assert torch.equal(kw, pw)
+        assert ks.equal(ps) == (True, "")
+
+
+@pytest.mark.gpu
+def test_decision_frame_kernels_reject_bad_input_on_card():
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    env = GridnetEnv(asset_path("maps/8x8/basesWorkers8x8.xml"),
+                     device="cuda")
+    s = env.reset(4)
+    cfg = env.cfg.engine
+    with pytest.raises(TypeError):
+        KN.EVENT_JUMP(s, s.time.long(), 512)
+    with pytest.raises(ValueError):
+        KN.EVENT_JUMP(s, None, 512, torch.zeros(3, dtype=torch.bool,
+                                                device="cuda"))
+    with pytest.raises(TypeError):
+        KN.CYCLE(cfg, s, torch.ones(4, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError):
+        KN.DECODE(env.cfg, s, torch.zeros((4, 8, 8, 7), dtype=torch.int32,
+                                          device="cuda"), 0, -1)
+    p = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        KN.EVALUATE(cfg, "sqrt3", s.replace(hp=s.hp.int()), p)
+    with pytest.raises(ValueError):
+        KN.EVALUATE(cfg, "sqrt3", s, p[:2])
+    with pytest.raises(KeyError):
+        KN.EVALUATE(cfg, "nope", s, p)

@@ -35,6 +35,8 @@ def test_import_loads_no_jax():
             "import microrts_tpu_torch.train.ppo, microrts_tpu_torch.profile_step\n"
             "import microrts_tpu_torch.train.run, microrts_tpu_torch.config\n"
             "import microrts_tpu_torch.utils.checkpoint\n"
+            "import microrts_tpu_torch.ops.playout, microrts_tpu_torch.ops.evaluation\n"
+            "import microrts_tpu_torch.bots.search, microrts_tpu_torch.eval.tournament\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'microrts_tpu')]\n"
             "print(bad)\n"

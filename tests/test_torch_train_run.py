@@ -1,7 +1,9 @@
 """The port's training CLI (``python -m microrts_tpu_torch.train.run``)
-on the CPU at a tiny size, and its checkpoints against the JAX package's:
-a checkpoint from either package loads in the other and gives the same
-logits (fp32 model: 1e-5 absolute, float32 sums in another order)."""
+on the CPU at a tiny size, with ``--eval-every`` (``evaluate`` against
+JAX's is in test_torch_evaluate.py), and its checkpoints against the JAX
+package's: a checkpoint from either package loads in the other and gives
+the same logits (fp32 model: 1e-5 absolute, float32 sums in another
+order)."""
 
 import numpy as np
 import pytest
@@ -49,8 +51,8 @@ def test_run_prints_its_update_line_and_round_trips_a_checkpoint(
 def test_run_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 14"):
         run.main(ARGS + ["--sharded"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run.main(ARGS + ["--eval-every", "1"])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        run.main(ARGS + ["--opponent", "NaiveMCTS"])
     with pytest.raises(NotImplementedError, match="item 9"):
         run.main(ARGS + ["--opponent", "POWorkerRush"])
 
@@ -60,6 +62,23 @@ def test_run_without_cpu_flag_needs_a_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run.main(["--map", MAP, "--updates", "1"])
+
+
+def test_run_with_eval_every_without_cpu_flag_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["--map", MAP, "--updates", "1", "--eval-every", "1",
+                  "--eval-games", "2"])
+
+
+def test_run_evaluates_every_update(capsys):
+    run.main(ARGS + ["--updates", "1", "--eval-every", "1", "--eval-games",
+                     "2"])
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if "eval: win-rate" in ln]
+    assert len(lines) == 1 and lines[0].endswith("vs WorkerRush"), out
+    assert 0.0 <= float(lines[0].split()[2]) <= 1.0
 
 
 def _models(seed=0):
