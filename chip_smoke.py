@@ -7,9 +7,9 @@ Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
 envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the twelve CUDA kernels from ``microrts_tpu_torch/
-   kernels/csrc`` (one ``nvcc`` per source, in parallel; ``-Xptxas -v``
-   report printed);
+2. build: compiles the sixteen CUDA kernels (thirteen sources) from
+   ``microrts_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in
+   parallel; ``-Xptxas -v`` report printed);
 3. realistic states: runs the plain PyTorch path (RandomBiasedAI, bias 5,
    both players) on the card until the recorded kernel inputs hold busy
    units, kept produces and completing attacks (at least 20), harvests
@@ -31,8 +31,13 @@ envs:
    terminal, rush and initial records; ``evaluate`` (K12a), all seven
    functions from both players' view and a per-lane player vector (the
    Sqrt family and the upper bound exact, Simple, Opt and Lanchester
-   within 1e-5 of the larger of the value and 1); each kernel and its
-   plain version are timed with CUDA events;
+   within 1e-5 of the larger of the value and 1); the actor's masks and
+   decode with a per-env player vector; ``arm_sample`` (K12b) in its four
+   modes on random visit tables and ``arms_to_action``; ``mcts_descend``
+   (K12c) and ``mcts_backprop`` (K12d) on every 5th node-array update of
+   plain NaiveMCTS and UCT searches of 16 rush records (6-node trees, so
+   that they fill; exact); each
+   kernel and its plain version are timed with CUDA events;
 5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
    kernels next to the plain path, same start and uniforms, 256 ticks
    with auto-resets; state, obs, rewards and dones equal at every tick;
@@ -87,11 +92,23 @@ envs:
    64 games to 32 cycles through the kernels next to the plain path
    (win-rate, winners and final states equal), then 1024 games to 2000
    cycles, timed, with its win-rate;
-11. one JSON line of every kernel (launches: phase 7's for the training
+11. tree search: one NaiveMCTS and one UCT decision of 16 rush records
+   at a reduced budget (8 playouts, 16 nodes, 8 children or candidates,
+   depth 4, playout_len 24) and 16 NaiveMCTS (2 playouts, depth 2,
+   playout_len 4) vs WorkerRush games to 32 cycles (``play_matches``),
+   through the kernels next to the plain path with the same draws (whole
+   trees, actions, winners and final states equal); on 64 recorded rush
+   games at a decision frame of player 0, one decision of each at the
+   defaults' nodes, children and depth with short playouts (10 and 9
+   playouts of 4 ticks), kernel next to plain (whole trees and actions
+   equal), then one decision of each (``make_bot``: the JAX defaults),
+   timed:
+   game-decisions/s, tree iterations/s, launches by kernel, peak memory;
+12. one JSON line of every kernel (launches: phase 7's for the training
    kernels, one MonteCarlo decision's for ``event_jump`` and
-   ``evaluate``; every phase's under ``launches_by_phase``), the
-   ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+   ``evaluate``, one NaiveMCTS decision's at the defaults for K12b-d;
+   every phase's under ``launches_by_phase``), the ``nvidia-smi`` line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 No single PyTorch call computes any kernel's function (the engine, the
 bots and the masked factored categorical are the JAX package's own
@@ -171,6 +188,26 @@ EVAL_EXACT = ("simple_sqrt_eval", "simple_sqrt_eval2", "simple_sqrt_eval3",
               "simple_opt_upper_bound")
 EVAL_FLOAT = ("simple_eval", "simple_opt_eval", "lanchester_eval")
 EVAL_RTOL = 1e-5
+# the tree search (K12b-d): NaiveMCTS and UCT
+ARM_ROWS = 3             # phase 4: rows of the random visit tables (B=1024)
+TREE_GAMES = 16          # phases 4, 11: games of the checked searches
+TREE_CHECK = dict(n_playouts=8, max_nodes=16, max_children=8, max_depth=4,
+                  playout_len=24)
+UCT_CHECK = dict(n_playouts=8, max_nodes=16, n_candidates=8, max_depth=4,
+                 playout_len=24)
+TREE_GAME = dict(n_playouts=2, max_depth=2, playout_len=4)
+TREE_GAME_CYCLES = 32    # phase 11: NaiveMCTS vs WorkerRush, 16 games
+TREE_TIME_GAMES = 64     # phase 11: one decision at the JAX defaults
+# phase 11: kernel vs plain at the defaults' tree shapes (N, C, D) on the
+# 64 timed games, with short playouts so that the plain path stays cheap
+TREE_DEEP = {"NaiveMCTS": dict(n_playouts=10, playout_len=4),
+             "UCT": dict(n_playouts=9, playout_len=4)}
+TREE_ITERS = 64          # ... whose n_playouts (treesearch.py:137, :620)
+TREE_SNAPSHOT_EVERY = 5  # phase 4: every 5th node-array update kept
+SNAP_NODES = 6           # ... of searches whose trees fill (nnodes == N)
+TREE_KERNELS = ("actor", "decode", "issue_env", "cycle", "event_jump",
+                "evaluate", "arm_sample", "arms_to_action", "mcts_descend",
+                "mcts_backprop")
 
 
 def smi_line() -> str:
@@ -282,6 +319,76 @@ def lane_ticks(state) -> int:
     return int(state.time.sum())
 
 
+def clone_tree(tree):
+    import dataclasses
+    return dataclasses.replace(tree, states=tree.states.clone(), **{
+        f: getattr(tree, f).clone() for f in type(tree).FIELDS})
+
+
+def clone_walk(w):
+    import dataclasses
+    from microrts_tpu_torch.kernels import WALK_FIELDS
+    return dataclasses.replace(w, st=w.st.clone(), leaf_st=w.leaf_st.clone(),
+                               **{f: getattr(w, f).clone()
+                                  for f in WALK_FIELDS})
+
+
+def tree_pairs(kt, pt, kw=None, pw=None):
+    """[(label, kernel tensor, plain tensor)] of two trees (and walks)."""
+    from microrts_tpu_torch.kernels import WALK_FIELDS
+    pairs = [(f, getattr(kt, f), getattr(pt, f)) for f in type(kt).FIELDS]
+    pairs += [(f"states.{f}", a, b) for f, a, b in state_pairs(kt.states,
+                                                               pt.states)]
+    if kw is not None:
+        pairs += [(f"walk.{f}", getattr(kw, f), getattr(pw, f))
+                  for f in WALK_FIELDS]
+        for name in ("st", "leaf_st"):
+            pairs += [(f"walk.{name}.{f}", a, b) for f, a, b in state_pairs(
+                getattr(kw, name), getattr(pw, name))]
+    return pairs
+
+
+def record_tree_calls(TS, run, every):
+    """Run ``run()`` (a plain search) with the node-array updates of
+    ``bots.treesearch`` wrapped: copies of the tree, the walk and the other
+    arguments of every ``every``-th call of each, before the call."""
+    names = ("mcts_descend", "uct_select", "uct_descend", "mcts_backprop")
+    real = {n: getattr(TS, n) for n in names}
+    snaps = {n: [] for n in names}
+    calls = {n: 0 for n in names}
+
+    def wrap(n):
+        def f(env, tree, w, *a):
+            if calls[n] % every == 0:
+                snaps[n].append((clone_tree(tree), clone_walk(w), a))
+            calls[n] += 1
+            return real[n](env, tree, w, *a)
+        return f
+    for n in names:
+        setattr(TS, n, wrap(n))
+    try:
+        run()
+    finally:
+        for n in names:
+            setattr(TS, n, real[n])
+    return snaps
+
+
+def tree_decision(env, make, kw, state, seed, player=0):
+    """One decision of ``make(env, **kw)``'s bot for ``state``, the bot's
+    noise drawn from a generator seeded with ``seed``: (tree, action)."""
+    import torch
+    bot = make(env, **kw)
+    g = torch.Generator(device=env.device)
+    g.manual_seed(seed)
+    nz = bot.draw(g, state.batch)
+    b = bot.bot
+    tree = (b.init_tree(state, player, nz.root()) if hasattr(nz, "root")
+            else b.init_tree(state, player))
+    b.search(tree, player, state.time, nz)
+    return tree, b.best_action(tree)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -301,8 +408,10 @@ def main() -> int:
     from microrts_tpu_torch.models.gridnet_policy import (
         ActionSpace, GridnetPolicy, action_logprob_plain, greedy_action_plain,
         gumbel_noise, sample_action_plain)
+    from microrts_tpu_torch.bots import treesearch as TS
     from microrts_tpu_torch.bots.search import monte_carlo_bot
     from microrts_tpu_torch.eval import tournament as TN
+    from microrts_tpu_torch.ops import arms as AR
     from microrts_tpu_torch.ops import evaluation as EV
     from microrts_tpu_torch.ops import playout as PO
     from microrts_tpu_torch.profile_step import device_busy
@@ -618,6 +727,114 @@ def main() -> int:
         raise AssertionError(f"policy_logprob_bwd: {e}") from None
     errs["policy_logprob_bwd"] = float((kd - pd).abs().max())
     del kd, pd, klp, kent
+
+    # K12b: arm_sample in its four modes on recorded states with random
+    # visit tables (about 85% of the legal arms visited, so that both the
+    # unvisited-first and the visited rules are taken), arms_to_action; the
+    # per-lane player of the actor's masks and of decode
+    asp = AR.arm_space(kenv)
+    NA = asp.n_arms
+    lane_pl = ((torch.arange(B, device=dev) // 3) % 2).int()
+    to_max = (lane_pl == 1)[:, None, None, None]
+    arm_cases = dict(visited=0, unvisited=0)
+    for r in records[::3]:
+        st = r["s"]
+        errs["actor"] = max(errs["actor"], expect_equal(
+            "actor (per-lane player)", [(
+                "mask", KN.ACTOR(cfg, st, lane_pl, masks=True)[1],
+                penv.masks_plain(st, lane_pl))]))
+        a = torch.where(to_max, r["a1"], r["a0"])
+        kc = KN.DECODE(kenv.cfg, st, a, lane_pl)
+        pc = penv.decode_plain(st, a, lane_pl)
+        errs["decode"] = max(errs["decode"], expect_equal(
+            "decode (per-lane player)",
+            [(f, getattr(kc, f), getattr(pc, f)) for f in Candidates.FIELDS]))
+        mask = penv.masks_plain(st, lane_pl)
+        shape = (B, ARM_ROWS, H, W, NA)
+        tvis = torch.where(
+            torch.rand(shape, generator=gen, device=dev) < 0.85,
+            torch.randint(1, 4, shape, generator=gen, device=dev,
+                          dtype=torch.int32), 0).int()
+        tacc = torch.randn(shape, generator=gen, device=dev) * tvis
+        nvis = torch.randint(1, 50, (B, ARM_ROWS), generator=gen,
+                             device=dev, dtype=torch.int32)
+        cur = torch.randint(0, ARM_ROWS, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        gum = gumbel_noise((B, H, W, NA), gen, dev)
+        tables = (tvis, tacc, nvis)
+        la = AR.arm_masks_packed(asp, mask)
+        unv = (la & (tvis[torch.arange(B, device=dev), cur] == 0)).any(-1)
+        arm_cases["unvisited"] += int((unv & la.any(-1)).sum())
+        arm_cases["visited"] += int((~unv & la.any(-1)).sum())
+        for mode in ("egreedy", "ucb", "unit_uct"):
+            args = (asp, mask, gum, mode, tables, cur, lane_pl, 0, 0.3,
+                    TS._f32(1.0 - 0.3), 0.05)
+            ka, kact = AR.arm_sample(*args)
+            pa, pact = AR.arm_sample(*args, plain=True)
+            errs["arm_sample"] = max(errs["arm_sample"], expect_equal(
+                f"arm_sample {mode}", [("arms", ka, pa),
+                                       ("action", kact, pact)]))
+        errs["arms_to_action"] = max(errs["arms_to_action"], expect_equal(
+            "arms_to_action", [("action", AR.arms_to_action(asp, ka),
+                                AR.arms_to_action_plain(asp, ka))]))
+        gk = gumbel_noise((B, 2, H, W, NA), gen, dev)
+        errs["arm_sample"] = max(errs["arm_sample"], expect_equal(
+            "arm_sample uniform", [
+                ("arms", AR.arm_sample(asp, mask, gk, "uniform")[0],
+                 AR.arm_sample(asp, mask, gk, "uniform", plain=True)[0])]))
+        del tvis, tacc, gk
+    arm_rec = dict(mask=mask, gum=gum, tables=tables, cur=cur, arms=ka)
+    if min(arm_cases.values()) == 0:
+        raise AssertionError(f"the arm_sample inputs miss a case: "
+                             f"{arm_cases}")
+    # K12c/d: every 5th mcts_descend / uct_select / uct_descend /
+    # mcts_backprop call of two plain searches (NaiveMCTS with eps_g 0.3,
+    # so that the global bandit's random slot is read, and UCT; 6 nodes,
+    # so that the trees fill) on 16 rush records, each held kernel vs
+    # plain from the same copies
+    tree_state = State(**{f: getattr(rush_records[3], f)[:TREE_GAMES]
+                          for f in FIELD_DTYPES})
+    snaps = record_tree_calls(TS, lambda: tree_decision(
+        penv, TS.naive_mcts_bot, dict(TREE_CHECK, eps_g=0.3,
+                                      max_nodes=SNAP_NODES), tree_state,
+        31), TREE_SNAPSHOT_EVERY)
+    usnaps = record_tree_calls(TS, lambda: tree_decision(
+        penv, TS.uct_tree_bot, dict(UCT_CHECK, max_nodes=SNAP_NODES),
+        tree_state, 32), TREE_SNAPSHOT_EVERY)
+    tree_cases = dict(expanded=0, matched_or_global=0, leaf=0, full=0)
+    for which, snap in (("naive", snaps), ("uct", usnaps)):
+        for name in ("mcts_descend", "uct_select", "uct_descend",
+                     "mcts_backprop"):
+            for tree, w, a in snap[name]:
+                kt, kw_, pt, pw = (clone_tree(tree), clone_walk(w),
+                                   clone_tree(tree), clone_walk(w))
+                ko = getattr(TS, name)(kenv, kt, kw_, *a)
+                po = getattr(TS, name)(penv, pt, pw, *a)
+                extra = [] if ko is None else [("slot", ko[0], po[0]),
+                                               ("action", ko[1], po[1])]
+                key = "mcts_backprop" if name == "mcts_backprop" \
+                    else "mcts_descend"
+                errs[key] = max(errs[key], expect_equal(
+                    f"{name} ({which})", tree_pairs(kt, pt, kw_, pw) + extra))
+                if name in ("mcts_descend", "uct_descend"):
+                    grew = pt.nnodes > tree.nnodes
+                    tree_cases["expanded"] += int(grew.sum())
+                    tree_cases["matched_or_global"] += int(
+                        (~grew & ~pw.found & ~w.found).sum())
+                    tree_cases["leaf"] += int((pw.found & ~w.found).sum())
+                    tree_cases["full"] += int(
+                        (tree.nnodes == tree.nplayer.shape[1] - 1).sum())
+    if min(tree_cases.values()) == 0:
+        raise AssertionError(f"the tree snapshots miss a case: "
+                             f"{tree_cases}")
+    torch.cuda.synchronize()
+    print(f"    arm_sample (4 modes, per-lane players, {ARM_ROWS}-row "
+          f"random visit tables; cells {arm_cases}) and arms_to_action on "
+          f"{len(records[::3])} records, the per-lane player of actor and "
+          f"decode, and {sum(map(len, snaps.values()))} + "
+          f"{sum(map(len, usnaps.values()))} node-array updates of plain "
+          f"NaiveMCTS and UCT searches ({TREE_GAMES} games; steps "
+          f"{tree_cases}) equal to plain", flush=True)
     print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
           f"(max |diff| {errs})", flush=True)
 
@@ -734,6 +951,65 @@ def main() -> int:
         lambda: EV.simple_sqrt_eval3(st, lane_player, cfg, plain=True),
         nbytes(st.utype, st.owner, st.hp, st.carried, st.resources,
                lane_player) + 4 * B)
+    # arm_sample (egreedy, B=1024): what the function needs of this
+    # record: every cell's can-act flag in and its arm and action out;
+    # only for the cells that can act, the rest of the mask row that the
+    # legality reads (channels 7..), the Gumbels, tvis at the legal arms
+    # and tacc at the legal visited ones; per game cur, the player and
+    # nvis at cur
+    ar = arm_rec
+    HW = H * W
+    la = AR.arm_masks_packed(asp, ar["mask"])
+    trow = ar["tables"][0][torch.arange(B, device=dev), ar["cur"]]
+    n_act = int(la.any(-1).sum())
+    arm_bytes = (B * 12 + B * HW * (4 + 32)
+                 + n_act * 4 * (ar["mask"].shape[-1] - 7 + NA)
+                 + 4 * int(la.sum()) + 4 * int((la & (trow != 0)).sum()))
+    del la, trow
+    timing["arm_sample"] = (
+        lambda: AR.arm_sample(asp, ar["mask"], ar["gum"], "egreedy",
+                              ar["tables"], ar["cur"], lane_pl, 0, 0.3,
+                              TS._f32(0.7), 0.05),
+        lambda: AR.arm_sample(asp, ar["mask"], ar["gum"], "egreedy",
+                              ar["tables"], ar["cur"], lane_pl, 0, 0.3,
+                              TS._f32(0.7), 0.05, plain=True),
+        arm_bytes)
+    timing["arms_to_action"] = (
+        lambda: AR.arms_to_action(asp, ar["arms"]),
+        lambda: AR.arms_to_action_plain(asp, ar["arms"]),
+        B * HW * (4 + 28))
+    # mcts_descend (a NaiveMCTS step of 16 games, repeated on one copy of
+    # the tree): the sampled arms, the compared child planes, the expanded
+    # state read and written into its row, the edge planes, the next
+    # node's and the leaf's state copies where this step's data makes them
+    tree, w, a = snaps["mcts_descend"][len(snaps["mcts_descend"]) // 2]
+    Bt = w.cur.shape[0]
+    rows = torch.arange(Bt, device=dev)
+    nch = int(tree.nchild[rows, w.cur].sum())
+    pt, pw = clone_tree(tree), clone_walk(w)
+    TS.mcts_descend(penv, pt, pw, *a)
+    copies = int((pw.cur != w.cur).sum() + (pw.found & ~w.found).sum())
+    sbytes = nbytes(*[getattr(a[1], f) for f in FIELD_DTYPES]) // Bt
+    descend_bytes = (Bt * HW * (4 + 2) + nch * HW
+                     + Bt * 2 * sbytes + copies * 2 * sbytes)
+    kt, kw_ = clone_tree(tree), clone_walk(w)
+    pt, pw = clone_tree(tree), clone_walk(w)
+    timing["mcts_descend"] = (
+        lambda kt=kt, kw_=kw_, a=a: TS.mcts_descend(kenv, kt, kw_, *a),
+        lambda pt=pt, pw=pw, a=a: TS.mcts_descend(penv, pt, pw, *a),
+        descend_bytes)
+    # mcts_backprop (NaiveMCTS, 16 games): the path and its edge planes in,
+    # tacc and tvis read and written at every edge arm, node statistics
+    btree, bw, ba = snaps["mcts_backprop"][-1]
+    edges = int((bw.edge >= 0).sum())
+    bt, bw2 = clone_tree(btree), clone_walk(bw)
+    ptb, pwb = clone_tree(btree), clone_walk(bw)
+    timing["mcts_backprop"] = (
+        lambda bt=bt, bw2=bw2, ba=ba: TS.mcts_backprop(kenv, bt, bw2, *ba),
+        lambda ptb=ptb, pwb=pwb, ba=ba: TS.mcts_backprop(penv, ptb, pwb,
+                                                         *ba),
+        nbytes(bw.path, bw.edge, bw.plen, bw.leaf, ba[0]) + edges * 16
+        + 2 * Bt * (bw.path.shape[1] + 1) * 8)
     assert A == lg.shape[-1]
     times = {}
     print("    device time per call (queued; host-paced in brackets):")
@@ -777,7 +1053,9 @@ def main() -> int:
     torch.cuda.synchronize()
     want = dict(actor=2, decode=2, issue_env=2, cycle=1, epilogue=1,
                 splice_obs=1, policy_sample=0, policy_logprob_fwd=0,
-                policy_logprob_bwd=0, rush=0, event_jump=0, evaluate=0)
+                policy_logprob_bwd=0, rush=0, event_jump=0, evaluate=0,
+                arm_sample=0, arms_to_action=0, mcts_descend=0,
+                mcts_backprop=0)
     if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
@@ -1295,7 +1573,6 @@ def main() -> int:
     torch.cuda.synchronize()
     ev_sec = time.perf_counter() - t1
     ev_counts = KN.counts()
-    TN._games_fn = games_fn
     if not 0.0 <= wr <= 1.0 or ev_counts["policy_sample"] == 0 \
             or ev_counts["event_jump"] == 0:
         raise AssertionError(f"evaluate: win-rate {wr}, launches "
@@ -1305,20 +1582,126 @@ def main() -> int:
           f"{ev_sec:.2f} s; launches {ev_counts}; {kind}, {smi}",
           flush=True)
 
-    # ---- [11] results
+    # ---- [11] tree search: NaiveMCTS and UCT decisions of 16 recorded
+    # rush games at a reduced budget and 16 NaiveMCTS-vs-WorkerRush games
+    # to 32 cycles (play_matches), kernel vs plain with the same draws;
+    # then, on 64 games, a decision of each at the defaults' tree shapes
+    # with short playouts, kernel vs plain, and one at the JAX defaults,
+    # timed
+    t0 = time.perf_counter()
+    for name, make, kw, seed in (("NaiveMCTS", TS.naive_mcts_bot,
+                                  TREE_CHECK, 41),
+                                 ("UCT", TS.uct_tree_bot, UCT_CHECK, 42)):
+        KN.reset_counts()
+        kt, ka = tree_decision(kenv, make, kw, tree_state, seed)
+        kc = KN.counts()
+        pt, pa = tree_decision(penv, make, kw, tree_state, seed)
+        expect_equal(f"{name} decision", tree_pairs(kt, pt)
+                     + [("actions", ka, pa)])
+        if (any(kc[n] == 0 for n in TREE_KERNELS)
+                or any(kc[n] for n in kc if n not in TREE_KERNELS)):
+            raise AssertionError(f"a {name} decision launched {kc}; want "
+                                 f"each of {TREE_KERNELS} and no other")
+        print(f"[11] {name}: one decision of {TREE_GAMES} games ({kw}) "
+              f"identical to the plain path: trees (nodes "
+              f"{kt.nnodes.tolist()}) and actions; launches {kc} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t1 = time.perf_counter()
+    out = []
+    for env in (kenv, penv):
+        w = TN.play_matches(env, TS.naive_mcts_bot(env, **TREE_GAME),
+                            make_bot("WorkerRush", env), TREE_GAMES,
+                            TREE_GAME_CYCLES, seed=23)
+        torch.cuda.synchronize()
+        out.append(games.pop())
+        if not (out[-1][0].cpu().numpy() == w).all():
+            raise AssertionError("play_matches' winners are not its run's")
+    TN._games_fn = games_fn
+    expect_equal("NaiveMCTS vs WorkerRush", state_pairs(out[0][1], out[1][1])
+                 + [("winners", out[0][0], out[1][0])])
+    print(f"    NaiveMCTS ({TREE_GAME}) vs WorkerRush (play_matches): "
+          f"{TREE_GAMES} games to {TREE_GAME_CYCLES} cycles ({out[0][2]} "
+          f"frames) identical to the plain path "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    del out
+    # 64 recorded rush lanes at a decision frame of player 0 (an own idle
+    # unit), as the game loop calls a bot
+    lanes = [(i, b) for i, rs in enumerate(rush_records[1:-1], 1)
+             for b in PO.can_act(rs, 0).nonzero().flatten().tolist()]
+    lanes = lanes[::max(1, len(lanes) // TREE_TIME_GAMES)][:TREE_TIME_GAMES]
+    big = State(**{f: torch.stack([getattr(rush_records[i], f)[b]
+                                   for i, b in lanes])
+                   for f in FIELD_DTYPES})
+    tree_counts, tree_rates = {}, {}
+    for name, make in (("NaiveMCTS", TS.naive_mcts_bot),
+                       ("UCT", TS.uct_tree_bot)):
+        bot = make_bot(name, kenv)
+        n_it = TREE_ITERS
+        t1 = time.perf_counter()
+        kw = TREE_DEEP[name]
+        kt, ka = tree_decision(kenv, make, kw, big, 50)
+        pt, pa = tree_decision(penv, make, kw, big, 50)
+        expect_equal(f"{name} decision at the defaults' tree shapes",
+                     tree_pairs(kt, pt) + [("actions", ka, pa)])
+        n1 = kt.nplayer.shape[1]
+        kids = (kt.nchild[:, :n1 - 1] if hasattr(kt, "nchild")
+                else (kt.achild[:, :n1 - 1] >= 0).sum(-1))
+        print(f"    {name}: one decision of {TREE_TIME_GAMES} games at the "
+              f"defaults' N, C and D ({kw}) identical to the plain path: "
+              f"trees (nodes up to {int(kt.nnodes.max())} of {n1 - 1}, "
+              f"depth up to {int(kt.ndepth[:, :n1 - 1].max())}, children "
+              f"a node up to {int(kids.max())}) and actions "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+        del kt, pt
+        g = torch.Generator(device=dev)
+        g.manual_seed(51)
+        nz = bot.draw(g, TREE_TIME_GAMES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        KN.reset_counts()
+        t1 = time.perf_counter()
+        act = bot(big, 0, nz)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        tc = KN.counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if (any(tc[n] == 0 for n in TREE_KERNELS)
+                or any(tc[n] for n in tc if n not in TREE_KERNELS)):
+            raise AssertionError(f"a timed {name} decision launched {tc}")
+        if act.shape != (TREE_TIME_GAMES, H, W, 7) or not bool(
+                (act[..., 0] > 0).any()):
+            raise AssertionError(f"{name}: no unit acts in the decision")
+        tree_counts[name], tree_rates[name] = tc, TREE_TIME_GAMES / sec
+        print(f"    {name} at the JAX defaults: one decision of "
+              f"{TREE_TIME_GAMES} games in {sec:.3f} s: game-decisions/s/card "
+              f"{TREE_TIME_GAMES / sec:.2f}, tree iterations/s "
+              f"{n_it / sec:.1f} ({n_it * TREE_TIME_GAMES / sec:.1f} "
+              f"game-iterations/s); {sum(tc.values())} launches {tc}; peak "
+              f"device memory {peak:.2f} GiB ({peak - held:.2f} GiB above "
+              f"what the script held before); {kind}, {smi}", flush=True)
+    print(f"    [11] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- [12] results
     kernels = []
+    tree_k = ("arm_sample", "arms_to_action", "mcts_descend",
+              "mcts_backprop")
     for k in KN.KERNELS:
         kms, pms, bound, byts, by = times[k.name]
         new = k.name in ("event_jump", "evaluate")
+        launches = (tree_counts["NaiveMCTS"][k.name] if k.name in tree_k
+                    else mc_counts[k.name] if new else upd_counts[k.name])
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
-            source=k.source, replaces=k.replaces,
-            launches=mc_counts[k.name] if new else upd_counts[k.name],
+            source=k.source, replaces=k.replaces, launches=launches,
             launches_by_phase={"5": counts[k.name], "6": roll_counts[k.name],
                                "7": upd_counts[k.name],
                                "8": rr_counts[k.name],
                                "9": mc_counts[k.name],
-                               "10": ev_counts[k.name]},
+                               "10": ev_counts[k.name],
+                               "11 NaiveMCTS": tree_counts["NaiveMCTS"][
+                                   k.name],
+                               "11 UCT": tree_counts["UCT"][k.name]},
             max_abs_err=errs[k.name], ms=kms, plain_ms=pms, bound_ms=bound,
             bound_by=by, library_ms=None))
     print(json.dumps({"kernels": kernels}))

@@ -76,8 +76,22 @@ _RUSH = dict(
     CRush_V2="crush_v2")
 RUSH_BOTS = tuple(_RUSH)
 SEARCH_BOTS = ("MonteCarlo",)
+# the tree-search bots the port has: name -> (bots.treesearch constructor,
+# its arguments), as the JAX package's registry builds them
+# (microrts_tpu/config.py:222-237)
+_TREE = dict(
+    NaiveMCTS=("naive_mcts_bot", {}),
+    TwoPhaseNaiveMCTS=("naive_mcts_bot", dict(
+        eps0=1.0, eps_l=0.3, eps_g=0.0, phase2=(0.0, 0.3, 0.0),
+        phase1_ratio=0.5)),
+    MLPSMCTS=("mlps_mcts_bot", {}),
+    UCTUnitActions=("uct_unit_actions_bot", {}),
+    UCT=("uct_tree_bot", {}),
+    DownsamplingUCT=("uct_tree_bot", dict(n_candidates=4)),
+    UCTFirstPlayUrgency=("uct_tree_bot", dict(fpu=0.5)))
+TREE_BOTS = tuple(_TREE)
 PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI") + RUSH_BOTS \
-    + SEARCH_BOTS
+    + SEARCH_BOTS + TREE_BOTS
 
 # names the JAX package has and the port not yet: the ROADMAP.md queue 1
 # item that ports them
@@ -88,13 +102,12 @@ _NOT_PORTED = dict(
     POHeavyRush="item 9 (the fog of war)",
     PORangedRush="item 9 (the fog of war)",
     UnitActionProbabilityDistributionAI="item 11 (learned models)",
+    InformedNaiveMCTS="item 11 (learned models)",
     **{n: "item 10 (search bots)" for n in (
         "SCV", "SCVAdaptive", "AHTN", "LSI", "PuppetNoPlan",
         "PuppetSearchMCTS", "PuppetSearchAB", "BS1_NaiveMCTS",
         "BS2_NaiveMCTS", "BS3_NaiveMCTS", "PortfolioAI", "PGSAI",
-        "NaiveMCTS", "ContinuingNaiveMCTS",
-        "TwoPhaseNaiveMCTS", "InformedNaiveMCTS", "MLPSMCTS",
-        "UCTFirstPlayUrgency", "UCTUnitActions", "UCT", "DownsamplingUCT",
+        "ContinuingNaiveMCTS",
         "ABCD", "SampledABCD", "IDABCD", "RTMinimax", "IDRTMinimax",
         "IDRTMinimaxRandomized", "CooperativeAI")})
 
@@ -115,6 +128,10 @@ def make_bot(name: str, env):
     if name == "MonteCarlo":
         from .bots.search import monte_carlo_bot
         return monte_carlo_bot(env)
+    if name in _TREE:
+        from .bots import treesearch as TS
+        fn, kw = _TREE[name]
+        return getattr(TS, fn)(env, **kw)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name} is not ported yet: ROADMAP.md queue 1 "

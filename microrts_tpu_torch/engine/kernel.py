@@ -64,6 +64,23 @@ def sum2(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=(-2, -1), dtype=I32)
 
 
+def as_player(player, device=None):
+    """``player`` as a value that compares against ``[B, H, W]`` planes:
+    an int stays an int, a tensor of per-env players (int32 ``[B]``)
+    becomes ``[B, 1, 1]``."""
+    if isinstance(player, torch.Tensor):
+        return player.to(device=device).reshape(-1, 1, 1)
+    return int(player)
+
+
+def balance(state, player) -> torch.Tensor:
+    """int32 ``[B]``: ``player``'s (an int or int32 ``[B]``) stock."""
+    if isinstance(player, torch.Tensor):
+        return torch.where(player.to(state.device) == 1,
+                           state.resources[:, 1], state.resources[:, 0])
+    return state.resources[:, 1 if int(player) == 1 else 0]
+
+
 def iota(h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     ys, xs = torch.meshgrid(torch.arange(h, dtype=I32, device=device),
                             torch.arange(w, dtype=I32, device=device),
@@ -115,15 +132,16 @@ class Engine:
         free = (state.terrain == 0) & (state.utype == 0)
         return torch.stack([pull(free, d, False) for d in range(4)], -1)
 
-    def legal_masks(self, state: State, player: int) -> Dict[str, torch.Tensor]:
-        """Per-cell legality planes for ``player`` (kernel.py:742-792):
-        bool ``can_act [B,H,W]``, ``type [..,6]``, ``move``/``harvest``/
-        ``ret``/``produce_dir [..,4]``, ``produce_type [..,T]``,
-        ``produce_pair [..,4,T]`` and ``attack [..,(2R+1)^2]``."""
+    def legal_masks(self, state: State, player) -> Dict[str, torch.Tensor]:
+        """Per-cell legality planes for ``player`` (an int, or int32
+        ``[B]``: one per env) (kernel.py:742-792): bool ``can_act
+        [B,H,W]``, ``type [..,6]``, ``move``/``harvest``/``ret``/
+        ``produce_dir [..,4]``, ``produce_type [..,T]``, ``produce_pair
+        [..,4,T]`` and ``attack [..,(2R+1)^2]``."""
         t, exists = self._ctx(state)
         tp = self._tprop
         owner = state.owner.to(I32)
-        me = int(player)
+        me = as_player(player, state.device)
         can_act = exists & (owner == me) & ~state.busy
         is_res_n = exists & tp("is_resource", t)
         is_stock_n = exists & tp("is_stockpile", t)
@@ -136,7 +154,7 @@ class Engine:
                              & (pull(owner, d, -1) == me) for d in range(4)],
                             -1) \
             & (can_act & tp("can_harvest", t) & (state.carried > 0))[..., None]
-        bal = state.resources[:, 1 if me == 1 else 0]
+        bal = balance(state, player)
         afford = bal[:, None] >= self.lut("cost", t.device)[None, :]  # [B,T]
         prod_row = self.lut("produces", t.device)[t]                  # [B,H,W,T]
         prod_pair = ((prod_row & afford[:, None, None, :]

@@ -21,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from .. import kernels as KN
-from ..engine.kernel import iota, make_engine
+from ..engine.kernel import as_player, balance, iota, make_engine
 from ..engine.pgs import PhysicalGameState
 from ..engine.types import (ATTACK, HARVEST, INF, MOVE, NONE, PRODUCE, RETURN,
                             Candidates, EngineConfig, State, resolve_device,
@@ -100,11 +100,12 @@ class GridnetEnv:
                         for f, v in vars(self.init_state).items()})
 
     # ------------------------------------------------------------------
-    def decode(self, state: State, actions: torch.Tensor, player: int,
+    def decode(self, state: State, actions: torch.Tensor, player,
                none_duration: Optional[int] = None) -> Candidates:
         """PlayerAction.fromVectorAction + fillWithNones(gs, player, 1)
-        for one player, against the in-flight claims and produce costs
-        of ``state`` (gridnet.py:139-343).  With ``none_duration``, every
+        for one player (an int, or int32 ``[B]``: one per env), against
+        the in-flight claims and produce costs of ``state``
+        (gridnet.py:139-343).  With ``none_duration``, every
         NONE candidate gets that parameter: the bot path's NONE(10)
         (ops/playout.py:81-86)."""
         if self.engine._use_kernel(actions):
@@ -112,7 +113,7 @@ class GridnetEnv:
         return self.decode_plain(state, actions, player, none_duration)
 
     def decode_plain(self, state: State, actions: torch.Tensor,
-                     player: int, none_duration: Optional[int] = None
+                     player, none_duration: Optional[int] = None
                      ) -> Candidates:
         cfg = self.cfg.engine
         H, W, T = self.h, self.w, cfg.num_types
@@ -122,9 +123,9 @@ class GridnetEnv:
         B = actions.shape[0]
         dev = actions.device
         cost = self.engine.lut("cost", dev)
-        me = int(player)
+        me = as_player(player, dev)
         claimed0 = self._inflight_claims(state)
-        spent0 = self._inflight_spent(state, me)
+        spent0 = self._inflight_spent(state, player)
 
         present = (state.utype > 0) & (state.owner == me) & ~state.busy
         a = actions.to(I32)
@@ -173,12 +174,12 @@ class GridnetEnv:
         x_k = torch.full((B, Kp + 1), -1, dtype=torch.long,
                          device=dev).scatter(1, idx, slot)[:, :Kp]
         valid = torch.arange(Kp, device=dev)[None, :] < pos_ok.sum(1)[:, None]
-        balance = state.resources[:, 1 if me == 1 else 0]
+        bal = balance(state, player)
         spent = spent0
         kept = torch.zeros((B, Kp), dtype=torch.bool, device=dev)
         for i in range(Kp):
             blocked = (kept[:, :i] & (x_k[:, :i] == x_k[:, i:i + 1])).any(1)
-            res_ok = (spent == 0) | (spent + c_k[:, i] <= balance)
+            res_ok = (spent == 0) | (spent + c_k[:, i] <= bal)
             keep_i = valid[:, i] & ~blocked & res_ok
             spent = spent + torch.where(keep_i, c_k[:, i], 0)
             kept[:, i] = keep_i
@@ -216,12 +217,14 @@ class GridnetEnv:
             buf[:, s:s + H * W] |= seg
         return buf
 
-    def _inflight_spent(self, state: State, player: int) -> torch.Tensor:
-        """int32 [B]: ``player``'s in-flight produce costs."""
+    def _inflight_spent(self, state: State, player) -> torch.Tensor:
+        """int32 [B]: ``player``'s (an int or int32 ``[B]``) in-flight
+        produce costs."""
         cost = self.engine.lut("cost", state.device)
         pt = state.aptype.long().clamp(0, self.cfg.engine.num_types - 1)
         pc = torch.where(state.busy & (state.atype == PRODUCE)
-                         & (state.owner == player), cost[pt], 0)
+                         & (state.owner == as_player(player, state.device)),
+                         cost[pt], 0)
         return pc.sum((1, 2), dtype=I32)
 
     # ------------------------------------------------------------------
@@ -300,14 +303,14 @@ class GridnetEnv:
             oh(obs[:, 2], 3), oh(obs[:, 3], T + 1), oh(obs[:, 4], 6),
         ], -1).to(torch.float32)
 
-    def masks(self, state: State, player: int) -> torch.Tensor:
+    def masks(self, state: State, player) -> torch.Tensor:
         """int32 [B, H, W, 1+6+4+4+4+4+T+(2R+1)^2] (JNIGridnetClient
-        :60-99)."""
+        :60-99) of ``player``, an int or int32 ``[B]`` (one per env)."""
         if self.engine._use_kernel(state.utype):
             return KN.ACTOR(self.cfg.engine, state, player, masks=True)[1]
         return self.masks_plain(state, player)
 
-    def masks_plain(self, state: State, player: int) -> torch.Tensor:
+    def masks_plain(self, state: State, player) -> torch.Tensor:
         m = self.engine.legal_masks(state, player)
         return torch.cat(
             [m["can_act"][..., None], m["type"], m["move"], m["harvest"],

@@ -7,7 +7,9 @@ at first use (all sources at once, one ``nvcc`` each), and loaded with
 
 The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
 ``EPILOGUE``, ``SPLICE_OBS``, ``SAMPLE``, ``LOGPROB``, ``LOGPROB_BWD``,
-``RUSH``, ``EVENT_JUMP``, ``EVALUATE``) take CUDA tensors only: they
+``RUSH``, ``EVENT_JUMP``, ``EVALUATE``, ``ARM_SAMPLE``,
+``ARMS_TO_ACTION``, ``MCTS_DESCEND``, ``MCTS_BACKPROP``) take CUDA tensors
+only: they
 check device, dtype, shape and contiguity, allocate the outputs, launch on
 PyTorch's current stream, raise if the launch reports a CUDA error, and
 count their launches in ``.launches``.  The callers in ``engine``,
@@ -36,7 +38,7 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 # the kernel sources (csrc/<name>.cu), one shared library each
 NAMES = ("actor", "decode", "issue_env", "cycle", "epilogue",
          "splice_obs", "policy_sample", "policy_logprob", "rush", "event",
-         "evaluation")
+         "evaluation", "arms", "tree")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAXT = 16
@@ -151,9 +153,44 @@ class _EvalSpec(ctypes.Structure):
                 ("w", ctypes.c_float * 8)]
 
 
+class _ArmCfg(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("H", "W", "T", "D", "A", "M",
+                                            "n1")]
+
+
+class _TreeDims(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("H", "W", "T", "Dd", "A", "n1",
+                                            "C", "D")]
+
+
+# the tree tables (bots/treesearch.py NaiveTree / UCTTree) and their types
+TREE_DTYPES = dict(
+    nplayer=torch.int32, nterm=torch.bool, ndepth=torch.int32,
+    nacc=torch.float32, nvis=torch.int32, children=torch.int32,
+    carms=torch.int8, nchild=torch.int32, nnodes=torch.int32,
+    tacc=torch.float32, tvis=torch.int32, acand=torch.int8,
+    avis=torch.int32, aacc=torch.float32, achild=torch.int32)
+WALK_FIELDS = ("cur", "found", "leaf", "path", "edge", "plen", "player")
+
+
+class _TreeP(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in TREE_DTYPES]
+
+
+class _WalkP(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in WALK_FIELDS]
+
+
+class _StepP(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "done2", "can_max", "can_min", "arms", "coin_g", "pick_g", "coin0",
+        "slot", "cands")]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -161,9 +198,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                    ctypes.POINTER(_CandP))
     space = ctypes.POINTER(_Space)
     entries = {
-        "actor": dict(actor=[cfg, st, _I, _I, _P,
+        "actor": dict(actor=[cfg, st, _I, _I, _P, _P,
                              ctypes.POINTER(ctypes.c_float), _P, _P, _P]),
-        "decode": dict(decode=[cfg, st, _I, _I, _P, _I, _I, cd, _P]),
+        "decode": dict(decode=[cfg, st, _I, _I, _P, _P, _I, _I, cd, _P]),
         "issue_env": dict(issue_env=[cfg, st, _I, cd, st, _P]),
         "cycle": dict(cycle=[cfg, st, _I, st, _P, _P, _P]),
         "epilogue": dict(epilogue=[cfg, ctypes.POINTER(_EpiCfg), _I, _P, _P,
@@ -182,6 +219,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                                   _P, _P, _P, _P, _P]),
         "evaluation": dict(evaluate=[cfg, ctypes.POINTER(_EvalSpec), _P, _P,
                                      _P, _P, _P, _P, _I, _P, _P]),
+        "arms": dict(
+            arm_sample=[ctypes.POINTER(_ArmCfg), _I, _I, _I, _P, _P, _P, _P,
+                        _P, _P, _P, _I, _F, _F, _F, _P, _P, _P],
+            arms_to_action=[_I, _I, _I, _P, _P, _P]),
+        "tree": dict(
+            mcts_descend=[ctypes.POINTER(_TreeDims), _I, _I,
+                          ctypes.POINTER(_TreeP), ctypes.POINTER(_WalkP), st,
+                          st, ctypes.POINTER(_StepP), _I, _F, _F, _F, _I, _F,
+                          _P, _P, st, st, _P],
+            mcts_backprop=[ctypes.POINTER(_TreeDims), _I, _I,
+                           ctypes.POINTER(_TreeP), ctypes.POINTER(_WalkP), _P,
+                           _P]),
     }[name]
     for entry, argtypes in entries.items():
         fn = getattr(lib, f"{entry}_launch")
@@ -245,6 +294,14 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _player(player, batch: int, device) -> Tuple[int, Optional[int]]:
+    """(the int player, or 0; the int32 ``[batch]`` per-env players'
+    pointer, or None) of ``player``, an int or an int32 tensor."""
+    if isinstance(player, torch.Tensor):
+        return 0, _check("players", player, torch.int32, (batch,), device)
+    return int(player), None
+
+
 class Kernel:
     """One kernel's library entry (``<name>_launch`` in ``csrc/<src>.cu``)
     and launch counter."""
@@ -265,10 +322,11 @@ class Kernel:
 
 
 class _Actor(Kernel):
-    def __call__(self, cfg: EngineConfig, state: State, player: int,
+    def __call__(self, cfg: EngineConfig, state: State, player,
                  u: Optional[torch.Tensor] = None, weights=None,
                  masks: bool = False):
-        """Legal masks + RandomBiasedAI sampling.  With ``u`` (float32
+        """Legal masks + RandomBiasedAI sampling for ``player`` (an int, or
+        int32 ``[B]``: one per env).  With ``u`` (float32
         ``[B, H, W, 2]``) and ``weights`` (6 class weights) returns the
         int32 ``[B, H, W, 7]`` actions; with ``masks=True`` also the packed
         int32 ``[B, H, W, 23+T+(2R+1)^2]`` mask.  Returns (actions or
@@ -290,9 +348,11 @@ class _Actor(Kernel):
                                dtype=torch.int32, device=dev)
         if act is None and mask is None:
             raise ValueError("actor: nothing to compute")
+        me, players = _player(player, B, dev)
         with torch.cuda.device(dev):
             self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
-                         int(player), u.data_ptr() if u is not None else None,
+                         me, players,
+                         u.data_ptr() if u is not None else None,
                          w, act.data_ptr() if act is not None else None,
                          mask.data_ptr() if mask is not None else None,
                          _stream(dev))
@@ -301,9 +361,10 @@ class _Actor(Kernel):
 
 class _Decode(Kernel):
     def __call__(self, env_cfg, state: State, actions: torch.Tensor,
-                 player: int, none_duration: Optional[int] = None
+                 player, none_duration: Optional[int] = None
                  ) -> Candidates:
-        """Gridnet actions int32 ``[B, H, W, 7]`` of ``player`` ->
+        """Gridnet actions int32 ``[B, H, W, 7]`` of ``player`` (an int, or
+        int32 ``[B]``: one per env) ->
         Candidates (six new int32 planes).  With ``none_duration``, every
         NONE candidate gets that parameter (the bot path's padding)."""
         if none_duration is not None and none_duration < 0:
@@ -316,9 +377,10 @@ class _Decode(Kernel):
         out = Candidates(*[torch.empty((B, H, W), dtype=torch.int32,
                                        device=dev)
                            for _ in Candidates.FIELDS])
+        me, players = _player(player, B, dev)
         with torch.cuda.device(dev):
             self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
-                         int(player), actions.data_ptr(),
+                         me, players, actions.data_ptr(),
                          int(env_cfg.max_produce_scan),
                          -1 if none_duration is None else int(none_duration),
                          ctypes.byref(_cand_p(out, (B, H, W), dev)),
@@ -696,6 +758,192 @@ class _Evaluate(Kernel):
         return out
 
 
+class _ArmSample(Kernel):
+    def __call__(self, sp, mode: int, mask: torch.Tensor,
+                 gumbel: torch.Tensor, tables=None, cur=None, player=None,
+                 maxp: int = 0, eps_l: float = 0.0, greedy_w: float = 0.0,
+                 ucb_c: float = 0.0):
+        """The local bandits of one node per game (``ops.arms.arm_sample``
+        with ``mode`` its index in ``ops.arms.MODES``).  ``mask`` int32
+        ``[B, H, W, 23+T+D*D]``; uniform mode (0): ``gumbel`` float32 ``[B,
+        K, H, W, A]``, returns (arms int32 ``[B, K, H, W]``, None); the
+        tree rules: ``gumbel`` ``[B, H, W, A]``, ``tables`` (tvis int32,
+        tacc float32 ``[B, N+1, H, W, A]``, nvis int32 ``[B, N+1]``),
+        ``cur``/``player`` int32 ``[B]``, returns (arms int32 ``[B, H,
+        W]``, action int32 ``[B, H, W, 7]``)."""
+        dev = mask.device
+        B, H, W = mask.shape[:3]
+        T, A = sp.num_types, sp.n_arms
+        M = 23 + T + sp.diam * sp.diam
+        _check("mask", mask, torch.int32, (B, H, W, M), dev)
+        tv = ta = nv = cp = pp = None
+        act = None
+        if mode == 0:
+            K, n1 = gumbel.shape[1], 1
+            _check("gumbel", gumbel, torch.float32, (B, K, H, W, A), dev)
+            arms = torch.empty((B, K, H, W), dtype=torch.int32, device=dev)
+        else:
+            K = 1
+            tvis, tacc, nvis = tables
+            n1 = tvis.shape[1]
+            _check("gumbel", gumbel, torch.float32, (B, H, W, A), dev)
+            tv = _check("tvis", tvis, torch.int32, (B, n1, H, W, A), dev)
+            ta = _check("tacc", tacc, torch.float32, (B, n1, H, W, A), dev)
+            nv = _check("nvis", nvis, torch.int32, (B, n1), dev)
+            cp = _check("cur", cur, torch.int32, (B,), dev)
+            pp = _check("player", player, torch.int32, (B,), dev)
+            arms = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+            act = torch.empty((B, H, W, 7), dtype=torch.int32, device=dev)
+        cfg = _ArmCfg(H=H, W=W, T=T, D=sp.diam, A=A, M=M, n1=n1)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(cfg), B, int(mode), K, mask.data_ptr(),
+                         gumbel.data_ptr(), tv, ta, nv, cp, pp, int(maxp),
+                         float(eps_l), float(greedy_w), float(ucb_c),
+                         arms.data_ptr(),
+                         act.data_ptr() if act is not None else None,
+                         _stream(dev))
+        return arms, act
+
+
+class _ArmsToAction(Kernel):
+    def __call__(self, sp, arms: torch.Tensor) -> torch.Tensor:
+        """Arm planes int32 ``[B, H, W]`` -> gridnet actions int32 ``[B, H,
+        W, 7]`` (``ops.arms.arms_to_action``)."""
+        dev = arms.device
+        _check("arms", arms, torch.int32, tuple(arms.shape), dev)
+        act = torch.empty(tuple(arms.shape) + (7,), dtype=torch.int32,
+                          device=dev)
+        with torch.cuda.device(dev):
+            self._launch(arms.numel(), sp.num_types, sp.diam,
+                         arms.data_ptr(), act.data_ptr(), _stream(dev))
+        return act
+
+
+def _tree_p(tree, w, sp=None):
+    """(the tree's and the walk's C structs, their dims, B) after checking
+    every table's type, shape and device; ``sp`` (the arm space) gives
+    the catalog's sizes to the launches that decode arms."""
+    B, n1 = tree.nplayer.shape
+    dev = tree.nplayer.device
+    H, W = tree.states.utype.shape[1:]
+    ptrs = {}
+    for f, dt in TREE_DTYPES.items():
+        t = getattr(tree, f, None)
+        if t is not None:
+            lead = (B,) if f == "nnodes" else (B, n1)
+            ptrs[f] = _check(f, t, dt, lead + tuple(t.shape[len(lead):]),
+                             dev)
+    naive = getattr(tree, "children", None) is not None
+    C = (tree.children if naive else tree.achild).shape[2]
+    D = w.path.shape[1] - 2
+    wp = {}
+    for f in WALK_FIELDS:
+        dt = torch.bool if f == "found" else torch.int32
+        shape = (B,)
+        if f == "path":
+            shape = (B, D + 2)
+        if f == "edge":
+            dt = torch.int8 if naive else torch.int32
+            shape = (B, D + 2, H, W) if naive else (B, D + 2)
+        wp[f] = _check(f, getattr(w, f), dt, shape, dev)
+    dims = _TreeDims(H=H, W=W, T=sp.num_types if sp else 1,
+                     Dd=sp.diam if sp else 1,
+                     A=tree.tacc.shape[-1] if naive else 0, n1=n1, C=C, D=D)
+    return _TreeP(**ptrs), _WalkP(**wp), dims, B
+
+
+class _MctsDescend(Kernel):
+    def _run(self, mode, tree, w, st2=None, step=None, maxp=0, eps0=0.0,
+             eps_g=0.0, c_uct=0.0, fpu=None, slot_out=None, act=None,
+             cfg=None, sp=None):
+        tp, wp, dims, B = _tree_p(tree, w, sp)
+        dev = tree.nplayer.device
+        S = cur_st = leaf_st = st2p = None
+        if st2 is not None:
+            if tree.states.batch != B * dims.n1 or st2.batch != B:
+                raise ValueError("mcts_descend: state batch mismatch")
+            S = ctypes.byref(_state_p(tree.states, cfg)[0])
+            st2p = ctypes.byref(_state_p(st2, cfg)[0])
+            cur_st = ctypes.byref(_state_p(w.st, cfg)[0])
+            leaf_st = ctypes.byref(_state_p(w.leaf_st, cfg)[0])
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(dims), mode, B, ctypes.byref(tp),
+                         ctypes.byref(wp), S, st2p,
+                         None if step is None else ctypes.byref(step),
+                         int(maxp), float(eps0), float(eps_g), float(c_uct),
+                         int(fpu is not None),
+                         0.0 if fpu is None else float(fpu),
+                         None if slot_out is None else slot_out.data_ptr(),
+                         None if act is None else act.data_ptr(), cur_st,
+                         leaf_st, _stream(dev))
+
+    @staticmethod
+    def _flags(B, dev, done2, can_max, can_min):
+        return dict(done2=_check("done2", done2, torch.bool, (B,), dev),
+                    can_max=_check("can_max", can_max, torch.bool, (B,), dev),
+                    can_min=_check("can_min", can_min, torch.bool, (B,), dev))
+
+    def naive(self, cfg: EngineConfig, tree, w, arms, st2: State, done2,
+              can_max, can_min, sn, maxp: int, eps0: float, eps_g: float,
+              D: int) -> None:
+        """One NaiveMCTS descent step of every game, in place on the tree
+        and the walk (``bots.treesearch.mcts_descend``); ``sn`` the step's
+        draws (``TreeStep``)."""
+        B, dev = arms.shape[0], arms.device
+        C = tree.children.shape[2]
+        if w.path.shape[1] != D + 2:
+            raise ValueError("mcts_descend: the path is not D + 2 long")
+        step = _StepP(
+            arms=_check("arms", arms, torch.int32,
+                        (B, cfg.height, cfg.width), dev),
+            coin_g=_check("coin_g", sn.coin_g, torch.float32, (B,), dev),
+            pick_g=_check("pick_g", sn.pick_g, torch.int32, (B, C), dev),
+            coin0=_check("coin0", sn.coin0, torch.float32, (B,), dev),
+            **self._flags(B, dev, done2, can_max, can_min))
+        self._run(0, tree, w, st2, step, maxp, eps0, eps_g, cfg=cfg)
+
+    def uct_select(self, sp, tree, w, maxp: int, c_uct: float,
+                   fpu: Optional[float]):
+        """UCT's choice at the walk's node (``bots.treesearch.uct_select``):
+        (slot int32 ``[B]``, the candidate's gridnet action int32 ``[B, H,
+        W, 7]``)."""
+        B, dev = tree.nplayer.shape[0], tree.nplayer.device
+        H, W = tree.acand.shape[-2:]
+        slot = torch.empty(B, dtype=torch.int32, device=dev)
+        act = torch.empty((B, H, W, 7), dtype=torch.int32, device=dev)
+        self._run(1, tree, w, maxp=maxp, c_uct=c_uct, fpu=fpu,
+                  slot_out=slot, act=act, sp=sp)
+        return slot, act
+
+    def uct(self, cfg: EngineConfig, tree, w, slot, st2: State, done2,
+            can_max, can_min, cands, maxp: int, D: int) -> None:
+        """One UCT descent step of every game, in place
+        (``bots.treesearch.uct_descend``)."""
+        B, dev = slot.shape[0], slot.device
+        K = tree.achild.shape[2]
+        if w.path.shape[1] != D + 2:
+            raise ValueError("mcts_descend: the path is not D + 2 long")
+        step = _StepP(
+            slot=_check("slot", slot, torch.int32, (B,), dev),
+            cands=_check("cands", cands, torch.int32,
+                         (B, K, cfg.height, cfg.width), dev),
+            **self._flags(B, dev, done2, can_max, can_min))
+        self._run(2, tree, w, st2, step, maxp, cfg=cfg)
+
+
+class _MctsBackprop(Kernel):
+    def __call__(self, tree, w, v: torch.Tensor) -> None:
+        """Credit ``v`` (float32 ``[B]``) along every game's walk, in place
+        (``bots.treesearch.mcts_backprop``)."""
+        tp, wp, dims, B = _tree_p(tree, w)
+        _check("v", v, torch.float32, (B,), v.device)
+        with torch.cuda.device(v.device):
+            self._launch(ctypes.byref(dims),
+                         int(getattr(tree, "children", None) is None), B,
+                         ctypes.byref(tp), ctypes.byref(wp), v.data_ptr(),
+                         _stream(v.device))
+
+
 # ``replaces``: the JAX function each kernel stands for (file:line)
 ACTOR = _Actor("actor", "microrts_tpu/engine/kernel.py:742")  # + scripted.py:69
 DECODE = _Decode("decode", "microrts_tpu/env/gridnet.py:139")
@@ -721,8 +969,19 @@ EVENT_JUMP = _EventJump("event_jump", "microrts_tpu/ops/playout.py:58",
 # ops/evaluation.py:25-167, the seven functions
 EVALUATE = _Evaluate("evaluate", "microrts_tpu/ops/evaluation.py:77",
                      "evaluation")
+# + ops/arms.py:60/121, treesearch.py:196-274 (local_sample), :646
+ARM_SAMPLE = _ArmSample("arm_sample", "microrts_tpu/ops/arms.py:60", "arms")
+ARMS_TO_ACTION = _ArmsToAction("arms_to_action",
+                               "microrts_tpu/ops/arms.py:82", "arms")
+# + treesearch.py:677-744 (UCT's descent step)
+MCTS_DESCEND = _MctsDescend("mcts_descend",
+                            "microrts_tpu/bots/treesearch.py:300", "tree")
+# + treesearch.py:390-392 (the leaf's credit), :751-760 (UCT)
+MCTS_BACKPROP = _MctsBackprop("mcts_backprop",
+                              "microrts_tpu/bots/treesearch.py:394", "tree")
 KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE,
-           LOGPROB, LOGPROB_BWD, RUSH, EVENT_JUMP, EVALUATE)
+           LOGPROB, LOGPROB_BWD, RUSH, EVENT_JUMP, EVALUATE, ARM_SAMPLE,
+           ARMS_TO_ACTION, MCTS_DESCEND, MCTS_BACKPROP)
 
 
 def reset_counts() -> None:

@@ -44,8 +44,10 @@ __device__ __forceinline__ int pick(unsigned long long bits, float u1) {
   return kth_bit(bits, j < hi ? j : hi);
 }
 
-__global__ void actor_kernel(Cfg cfg, StateP s, int me, const float* u,
+__global__ void actor_kernel(Cfg cfg, StateP s, int player,
+                             const int32_t* players, const float* u,
                              Weights wt, int32_t* act, int32_t* mask) {
+  const int me = players != nullptr ? players[blockIdx.x] : player;
   const int H = cfg.H, W = cfg.W, T = cfg.T, R = cfg.R, D = 2 * cfg.R + 1;
   const int HW = H * W;
   const int b = blockIdx.x;
@@ -169,8 +171,10 @@ __global__ void actor_kernel(Cfg cfg, StateP s, int me, const float* u,
   }
 }
 
+// players: int32 [batch] (one player per env), or null for `player`
 extern "C" int actor_launch(const Cfg* cfg, const StateP* s, int batch,
-                            int player, const float* u, const float* weights,
+                            int player, const int32_t* players,
+                            const float* u, const float* weights,
                             int32_t* act, int32_t* mask, void* stream) {
   const int HW = cfg->H * cfg->W;
   size_t smem = carve_bytes(HW) * 3 + 16;
@@ -179,6 +183,6 @@ extern "C" int actor_launch(const Cfg* cfg, const StateP* s, int batch,
   Weights wt;
   for (int i = 0; i < 6; ++i) wt.w[i] = weights[i];
   actor_kernel<<<batch, block_threads(HW), smem, (cudaStream_t)stream>>>(
-      *cfg, *s, player, u, wt, act, mask);
+      *cfg, *s, player, players, u, wt, act, mask);
   return (int)cudaGetLastError();
 }

@@ -57,6 +57,21 @@ __device__ __forceinline__ int tidx(const Cfg& cfg, int utype) {
   return clampi(utype - 1, 0, cfg.T - 1);
 }
 
+// The gridnet action [7] of arm ``arm`` of the search bots' arm catalog
+// (ops/arms.py arms_to_action; all zero for -1, a cell that cannot act).
+__device__ __forceinline__ void to_action(int arm, int T, int D,
+                                          int32_t* o) {
+  const int a = arm > 0 ? arm : 0;
+  const int ab = 13 + 4 * T;
+  const int at = a == 0 ? A_NONE : a < 5 ? A_MOVE : a < 9 ? A_HARVEST
+                 : a < 13 ? A_RETURN : a < ab ? A_PRODUCE : A_ATTACK;
+  const int pj = clampi(a - 13, 0, 4 * T - 1);
+  const int comp[7] = {at, clampi(a - 1, 0, 3), clampi(a - 5, 0, 3),
+                       clampi(a - 9, 0, 3), pj / T, pj % T,
+                       clampi(a - ab, 0, D * D - 1)};
+  for (int i = 0; i < 7; ++i) o[i] = arm > 0 ? comp[i] : 0;
+}
+
 // Bump-allocate an aligned slice of dynamic shared memory.
 template <typename T>
 __device__ __forceinline__ T* carve(unsigned char*& p, int n) {

@@ -27,8 +27,10 @@
 
 #define MAXKP 64
 
-__global__ void decode_kernel(Cfg cfg, StateP s, int me, const int32_t* act,
+__global__ void decode_kernel(Cfg cfg, StateP s, int player,
+                              const int32_t* players, const int32_t* act,
                               int kp, int none_duration, CandP out) {
+  const int me = players != nullptr ? players[blockIdx.x] : player;
   const int H = cfg.H, W = cfg.W, T = cfg.T, R = cfg.R, D = 2 * cfg.R + 1;
   const int HW = H * W, L = HW + 2 * W;
   const int OFF[4] = {-W, 1, W, -1};
@@ -160,8 +162,10 @@ __global__ void decode_kernel(Cfg cfg, StateP s, int me, const int32_t* act,
   }
 }
 
+// players: int32 [batch] (one player per env), or null for `player`
 extern "C" int decode_launch(const Cfg* cfg, const StateP* s, int batch,
-                             int player, const int32_t* act,
+                             int player, const int32_t* players,
+                             const int32_t* act,
                              int max_produce_scan, int none_duration,
                              const CandP* out, void* stream) {
   const int HW = cfg->H * cfg->W, L = HW + 2 * cfg->W;
@@ -171,6 +175,7 @@ extern "C" int decode_launch(const Cfg* cfg, const StateP* s, int batch,
   cudaError_t e = allow_smem(decode_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   decode_kernel<<<batch, block_threads(HW), smem, (cudaStream_t)stream>>>(
-      *cfg, *s, player, act, max_produce_scan, none_duration, *out);
+      *cfg, *s, player, players, act, max_produce_scan, none_duration,
+      *out);
   return (int)cudaGetLastError();
 }

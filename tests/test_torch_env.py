@@ -200,6 +200,39 @@ def test_step_obs_masks_dones_rewards(case):
             assert_eq(fns.legal(js, p)[1], env.masks(s, p), f"masks p{p}")
 
 
+def test_per_lane_player_masks_and_decode(case):
+    """``Engine.legal_masks``, ``GridnetEnv.masks``, ``_inflight_spent`` and
+    ``decode`` with a mixed per-env player vector (int32 ``[B]``, as the
+    tree search's nodes have) equal the two single-player calls merged by
+    lane."""
+    jenv, env, fns, states = case
+    rng = np.random.default_rng(5)
+    pl = torch.arange(B, dtype=torch.int32) % 2
+    one = pl == 1
+
+    def merged(a, b):
+        return torch.where(one.reshape((-1,) + (1,) * (a.dim() - 1)), b, a)
+    for s in states:
+        m = env.engine.legal_masks(s, pl)
+        ms = [env.engine.legal_masks(s, p) for p in (0, 1)]
+        for k in m:
+            assert torch.equal(m[k], merged(ms[0][k], ms[1][k])), k
+        assert torch.equal(env.masks(s, pl),
+                           merged(env.masks(s, 0), env.masks(s, 1)))
+        assert torch.equal(env._inflight_spent(s, pl), merged(
+            env._inflight_spent(s, 0), env._inflight_spent(s, 1)))
+        shape = tuple(s.utype.shape)
+        a = torch.from_numpy(garbage(rng, env.action_nvec(), shape, 0.5,
+                                     garbage(rng, env.action_nvec(), shape,
+                                             1.0)))
+        c = env.decode(s, a, pl, 10)
+        cs = [env.decode(s, a, p, 10) for p in (0, 1)]
+        for f in ("atype", "aparam", "atx", "aty", "aptype", "rank"):
+            assert torch.equal(getattr(c, f), merged(getattr(cs[0], f),
+                                                     getattr(cs[1], f))), f
+        assert (c.atype >= 0).any()
+
+
 def test_frame_skip():
     jenv, env = envs(MAPS[1], frame_skip=3)
     fns = jax_fns(jenv)

@@ -5,8 +5,10 @@ nor the JAX package, so it runs where only the port is installed::
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 
-Tolerance: exact, except the policy sampler's and K7b's logprob and
-entropy (fp32 sums in another order than the plain version's: 1e-5
+Tolerance: exact (the tree search too: its floats are sums and quotients
+in the same order, and logf/sqrtf as PyTorch rounds them), except the
+policy sampler's and K7b's logprob and entropy (fp32 sums in another
+order than the plain version's: 1e-5
 relative + 1e-4 absolute), K7b's gradient of the logits (1e-4 relative +
 1e-5 absolute, against autograd through the plain version), the float
 evaluation functions of K12a (Simple, Opt, Lanchester: float32 sums in
@@ -76,7 +78,8 @@ def test_kernel_path_equals_plain_on_card(map_rel):
         actor=4 * ticks, decode=2 * ticks, issue_env=2 * ticks, cycle=ticks,
         epilogue=ticks, splice_obs=ticks, policy_sample=0,
         policy_logprob_fwd=0, policy_logprob_bwd=0, rush=0, event_jump=0,
-        evaluate=0)
+        evaluate=0, arm_sample=0, arms_to_action=0, mcts_descend=0,
+        mcts_backprop=0)
 
 
 def _states(env, B, ticks, seed):
@@ -394,10 +397,13 @@ def test_update_kernel_path_matches_plain_on_card():
         if plain:
             assert not any(counts.values()), counts
         else:
-            # every kernel of training; the decision-frame path's not
+            # every kernel of training; the decision-frame path's and
+            # the tree search's not
+            search = ("event_jump", "evaluate", "arm_sample",
+                      "arms_to_action", "mcts_descend", "mcts_backprop")
             assert all(v > 0 for n, v in counts.items()
-                       if n not in ("event_jump", "evaluate")), counts
-            assert counts["event_jump"] == counts["evaluate"] == 0, counts
+                       if n not in search), counts
+            assert not any(counts[n] for n in search), counts
             assert counts["policy_logprob_fwd"] == 4
             assert counts["policy_logprob_bwd"] == 4
             assert counts["rush"] == 4
@@ -582,3 +588,155 @@ def test_decision_frame_kernels_reject_bad_input_on_card():
         KN.EVALUATE(cfg, "sqrt3", s, p[:2])
     with pytest.raises(KeyError):
         KN.EVALUATE(cfg, "nope", s, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_per_lane_player_actor_decode_on_card(map_rel):
+    """The actor's masks and decode with a per-env player vector equal two
+    single-player launches merged by lane, and the plain versions."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    env = GridnetEnv(asset_path(map_rel), device="cuda")
+    penv = GridnetEnv(asset_path(map_rel), device="cuda", plain=True)
+    B = 64
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    pl = (torch.rand(B, generator=g, device="cuda") < 0.5).to(torch.int32)
+    lane = (pl == 1)[:, None, None, None]
+    for s in _random_states(penv, B, 40, 6):
+        m = KN.ACTOR(env.cfg.engine, s, pl, masks=True)[1]
+        one = [KN.ACTOR(env.cfg.engine, s, p, masks=True)[1] for p in (0, 1)]
+        assert torch.equal(m, torch.where(lane, one[1], one[0]))
+        assert torch.equal(m, penv.masks(s, pl))
+        a = random_bot(penv, BIAS)(s, 0, torch.rand(
+            (B, env.h, env.w, 2), generator=g, device="cuda"))
+        a = torch.where(lane, random_bot(penv, BIAS)(s, 1, torch.rand(
+            (B, env.h, env.w, 2), generator=g, device="cuda")), a)
+        c = KN.DECODE(env.cfg, s, a, pl)
+        c1 = [KN.DECODE(env.cfg, s, a, p) for p in (0, 1)]
+        cp = penv.decode(s, a, pl)
+        for f in ("atype", "aparam", "atx", "aty", "aptype", "rank"):
+            want = torch.where(lane[..., 0], getattr(c1[1], f),
+                               getattr(c1[0], f))
+            assert torch.equal(getattr(c, f), want), f
+            assert torch.equal(getattr(c, f), getattr(cp, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_arm_sample_arms_to_action_equal_plain_on_card(map_rel):
+    """K12b in its four modes on random visit tables, and arms_to_action,
+    against their plain versions: arm planes and actions equal."""
+    _need_card()
+    from microrts_tpu_torch.ops import arms as AR
+    penv = GridnetEnv(asset_path(map_rel), device="cuda", plain=True)
+    sp = AR.arm_space(penv)
+    B, N1, A = 32, 5, sp.n_arms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    dev = "cuda"
+    for s in _random_states(penv, B, 30, 8):
+        pl = (torch.rand(B, generator=g, device=dev) < 0.5).to(torch.int32)
+        mask = penv.masks(s, pl)
+        shape = (B, N1, penv.h, penv.w, A)
+        tvis = torch.randint(0, 3, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+        tacc = torch.randn(shape, generator=g, device=dev) * tvis
+        nvis = torch.randint(0, 40, (B, N1), generator=g, device=dev,
+                             dtype=torch.int32)
+        cur = torch.randint(0, N1, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+        gum = gumbel_noise((B, penv.h, penv.w, A), g, dev)
+        for mode in ("egreedy", "ucb", "unit_uct"):
+            args = (sp, mask, gum, mode, (tvis, tacc, nvis), cur, pl, 0,
+                    0.3, 0.7, 0.05)
+            k = AR.arm_sample(*args)
+            p = AR.arm_sample(*args, plain=True)
+            assert torch.equal(k[0], p[0]), mode
+            assert torch.equal(k[1], p[1]), mode
+            assert (k[0] >= 0).any()
+        gk = gumbel_noise((B, 3, penv.h, penv.w, A), g, dev)
+        k = AR.arm_sample(sp, mask, gk, "uniform")[0]
+        assert torch.equal(k, AR.arm_sample(sp, mask, gk, "uniform",
+                                            plain=True)[0])
+        assert torch.equal(AR.arms_to_action(sp, k[:, 1].contiguous()),
+                           AR.arms_to_action_plain(sp, k[:, 1]))
+
+
+def _tree_eq(kt, pt):
+    for f in type(kt).FIELDS:
+        assert torch.equal(getattr(kt, f), getattr(pt, f)), f
+    assert kt.states.equal(pt.states) == (True, "")
+
+
+@pytest.mark.gpu
+def test_tree_search_kernels_equal_plain_on_card():
+    """NaiveMCTS (epsilon-greedy, TwoPhase, MLPS, UCTUnitActions) and UCT
+    (with and without first-play urgency) decisions through the kernels
+    equal the plain path with the same draws: whole trees and actions;
+    K12b-d launched on the kernel path."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import treesearch as TS
+    path = asset_path("maps/8x8/basesWorkers8x8.xml")
+    kenv = GridnetEnv(path, device="cuda")
+    penv = GridnetEnv(path, device="cuda", plain=True)
+    s = _random_states(penv, 8, 20, 9)[-1]
+    tiny = dict(n_playouts=6, max_nodes=12, max_children=4, max_depth=3,
+                playout_len=8)
+    cases = [(TS.naive_mcts_bot, tiny),
+             (TS.naive_mcts_bot, dict(tiny, eps0=1.0, eps_g=0.3,
+                                      phase2=(0.0, 0.3, 0.3))),
+             (TS.mlps_mcts_bot, dict(tiny, max_nodes=4)),
+             (TS.uct_unit_actions_bot, tiny),
+             (TS.uct_tree_bot, dict(n_playouts=6, max_nodes=12,
+                                    n_candidates=4, max_depth=3,
+                                    playout_len=8)),
+             (TS.uct_tree_bot, dict(n_playouts=6, max_nodes=4,
+                                    n_candidates=4, max_depth=3,
+                                    playout_len=8, fpu=0.5))]
+    for make, kw in cases:
+        out = []
+        for env in (kenv, penv):
+            bot = make(env, **kw)
+            g = torch.Generator(device="cuda")
+            g.manual_seed(11)
+            nz = bot.draw(g, s.batch)
+            b = bot.bot
+            KN.reset_counts()
+            if make is TS.uct_tree_bot:
+                tree = b.init_tree(s, 1, nz.root())
+            else:
+                tree = b.init_tree(s, 1)
+            b.search(tree, 1, s.time, nz)
+            out.append((tree, b.best_action(tree), KN.counts()))
+        (kt, ka, kc), (pt, pa, pc) = out
+        _tree_eq(kt, pt)
+        assert torch.equal(ka, pa)
+        assert not any(pc.values())
+        assert kc["arm_sample"] > 0 and kc["mcts_descend"] > 0
+        assert kc["mcts_backprop"] == kw["n_playouts"]
+        assert kc["evaluate"] == kw["n_playouts"]
+
+
+@pytest.mark.gpu
+def test_tree_kernels_reject_bad_input_on_card():
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.ops import arms as AR
+    env = GridnetEnv(asset_path("maps/8x8/basesWorkers8x8.xml"),
+                     device="cuda")
+    sp = AR.arm_space(env)
+    s = env.reset(4)
+    mask = env.masks(s, 0)
+    gum = torch.zeros((4, 2, 8, 8, sp.n_arms), device="cuda")
+    with pytest.raises(TypeError):
+        KN.ARM_SAMPLE(sp, 0, mask.long(), gum)
+    with pytest.raises(ValueError):
+        KN.ARM_SAMPLE(sp, 0, mask, gum[:2])
+    with pytest.raises(TypeError):
+        KN.ARMS_TO_ACTION(sp, torch.zeros((4, 8, 8), device="cuda"))
+    with pytest.raises(ValueError):
+        KN.ACTOR(env.cfg.engine, s, torch.zeros(3, dtype=torch.int32,
+                                                device="cuda"), masks=True)

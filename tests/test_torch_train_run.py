@@ -52,7 +52,7 @@ def test_run_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 14"):
         run.main(ARGS + ["--sharded"])
     with pytest.raises(NotImplementedError, match="item 10"):
-        run.main(ARGS + ["--opponent", "NaiveMCTS"])
+        run.main(ARGS + ["--opponent", "ContinuingNaiveMCTS"])
     with pytest.raises(NotImplementedError, match="item 9"):
         run.main(ARGS + ["--opponent", "POWorkerRush"])
 
