@@ -7,7 +7,7 @@ Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
 envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the sixteen CUDA kernels (thirteen sources) from
+2. build: compiles the eighteen CUDA kernels (fifteen sources) from
    ``microrts_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel; ``-Xptxas -v`` report printed);
 3. realistic states: runs the plain PyTorch path (RandomBiasedAI, bias 5,
@@ -36,8 +36,21 @@ envs:
    modes on random visit tables and ``arms_to_action``; ``mcts_descend``
    (K12c) and ``mcts_backprop`` (K12d) on every 5th node-array update of
    plain NaiveMCTS and UCT searches of 16 rush records (6-node trees, so
-   that they fill; exact); each
-   kernel and its plain version are timed with CUDA events;
+   that they fill; exact); ``enum_next`` (K12e), eight successive draws
+   of both players' odometers from ``init`` (four with every lane
+   drawing, four with every other lane) on every 3rd recorded tick, every
+   4th rush record, a record where no unit can act and a resource-tight
+   one (balance at most 2), arms, valid flags, trip counts and the
+   odometers in place exact, the largest trip count printed;
+   ``minimax_step`` (K12f) on every 5th trip, and every trip that pops a
+   root child, of plain ABCD and RTMinimax searches of 16 rush records
+   for both players at small budgets (budget 96 and the reduced shapes
+   of [12]), and on the same trips
+   with their pushes turned into exhausted draws (a search never draws
+   past its node's last joint action, all NONE), whole stacks, row S
+   too, exact, the pops, prunes, pushes, root updates and exhausted
+   draws among them printed; each kernel and its plain version are
+   timed with CUDA events;
 5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
    kernels next to the plain path, same start and uniforms, 256 ticks
    with auto-resets; state, obs, rewards and dones equal at every tick;
@@ -104,11 +117,30 @@ envs:
    equal), then one decision of each (``make_bot``: the JAX defaults),
    timed:
    game-decisions/s, tree iterations/s, launches by kernel, peak memory;
-12. one JSON line of every kernel (launches: phase 7's for the training
+12. minimax: on 16 recorded rush games, one decision each of ABCD,
+   IDABCD, RTMinimax, IDRTMinimax, IDRTMinimaxRandomized and SampledABCD
+   at reduced budgets, through the kernels next to the plain path with
+   the same draws (whole stacks, row S too, root values or scores, and
+   actions equal; each bot launches ``enum_next`` and ``minimax_step``,
+   SampledABCD neither, and no kernel outside its path), 16 ABCD-vs-
+   WorkerRush games to 16 cycles (``play_matches``) kernel vs plain
+   (winners and final states equal), then one decision of each of
+   ABCD, RTMinimax, IDRTMinimaxRandomized and SampledABCD on the 64 timed
+   games at the defaults' stack and candidate shapes (ABCD depth 4,
+   RTMinimax stack 12, the randomized bot's 8 x 8 DFS lanes a game at
+   stack 10, 8 x 8 SampledABCD candidates) with budgets of 48 trips and
+   8-tick playouts, kernel vs plain (whole stacks, values and actions
+   equal; the deepest stack row used printed), then one decision of the
+   64 games at the JAX defaults (``make_bot``) of each of the four, timed:
+   game-decisions/s/card, launches by kernel, peak memory, and the
+   device's busy share of a profiled decision (ABCD's at a budget of 64);
+13. one JSON line of every kernel (launches: phase 7's for the training
    kernels, one MonteCarlo decision's for ``event_jump`` and
-   ``evaluate``, one NaiveMCTS decision's at the defaults for K12b-d;
-   every phase's under ``launches_by_phase``), the ``nvidia-smi`` line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   ``evaluate``, one NaiveMCTS decision's at the defaults for K12b-d, one
+   ABCD decision's at the defaults for K12e-f; every phase's under
+   ``launches_by_phase``, [12] one entry a bot: the timed decision's, or
+   for IDABCD and IDRTMinimax the reduced one's), the ``nvidia-smi``
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 No single PyTorch call computes any kernel's function (the engine, the
 bots and the masked factored categorical are the JAX package's own
@@ -208,6 +240,40 @@ SNAP_NODES = 6           # ... of searches whose trees fill (nnodes == N)
 TREE_KERNELS = ("actor", "decode", "issue_env", "cycle", "event_jump",
                 "evaluate", "arm_sample", "arms_to_action", "mcts_descend",
                 "mcts_backprop")
+# the minimax family (K12e-f)
+MM_SNAPSHOT_EVERY = 5    # phase 4: every 5th minimax_step call kept ...
+MM_SNAPSHOT_BUDGET = 96  # ... of searches of both players at this budget
+MM_REDUCED = {           # phase 12 (and 4): kernel vs plain, 16 games
+    "ABCD": dict(max_depth=2, playout_len=8, node_budget=48),
+    "IDABCD": dict(depths=(1, 2), playout_len=8, node_budget=48),
+    "RTMinimax": dict(lookahead=12, stack_cap=6, node_budget=48),
+    "IDRTMinimax": dict(lookaheads=(6, 12), stack_cap=6, node_budget=48),
+    "IDRTMinimaxRandomized": dict(k_moves=4, repeats=4, lookahead=12,
+                                  stack_cap=6, node_budget=24),
+    "SampledABCD": dict(k_moves=4, playout_len=8)}
+MM_GAME_CYCLES = 16      # phase 12: ABCD (reduced) vs WorkerRush, 16 games
+# phase 12: kernel vs plain on the 64 timed games at the defaults' stack
+# shapes (ABCD S=5, RTMinimax S=12, IDRTMinimaxRandomized 4096 lanes S=11,
+# SampledABCD 8 x 8 candidates), with short budgets and playouts so that
+# the plain path stays cheap
+MM_DEEP = {"ABCD": dict(max_depth=4, playout_len=8, node_budget=48),
+           "RTMinimax": dict(lookahead=50, stack_cap=12, node_budget=48),
+           "IDRTMinimaxRandomized": dict(k_moves=8, repeats=8, lookahead=25,
+                                         stack_cap=10, node_budget=48),
+           "SampledABCD": dict(k_moves=8, playout_len=8)}
+# phase 12: the profiled decision (device busy share) is the timed one,
+# but ABCD's at this budget (its trips are alike; 512 would trace ~40,000
+# launches)
+MM_PROFILE_ABCD_BUDGET = 64
+MM_TIMED = ("ABCD", "RTMinimax", "IDRTMinimaxRandomized", "SampledABCD")
+DFS_KERNELS = ("actor", "decode", "issue_env", "cycle", "event_jump",
+               "evaluate", "arms_to_action", "enum_next", "minimax_step")
+MM_KERNELS = {"ABCD": DFS_KERNELS + ("rush",),
+              "IDABCD": DFS_KERNELS + ("rush",),
+              "RTMinimax": DFS_KERNELS, "IDRTMinimax": DFS_KERNELS,
+              "IDRTMinimaxRandomized": DFS_KERNELS,
+              "SampledABCD": ("actor", "decode", "issue_env", "cycle",
+                              "event_jump", "evaluate", "rush")}
 
 
 def smi_line() -> str:
@@ -389,6 +455,83 @@ def tree_decision(env, make, kw, state, seed, player=0):
     return tree, b.best_action(tree)
 
 
+def stack_pairs(k, p):
+    """[(label, kernel tensor, plain tensor)] of two minimax stacks: every
+    table (row S too), the stacked states and the per-lane state."""
+    pt = p.tensors()
+    pairs = [(f, t, pt[f]) for f, t in k.tensors().items()]
+    pairs += [(f"states.{f}", a, b) for f, a, b in state_pairs(k.states,
+                                                               p.states)]
+    return pairs + [(f"cur.{f}", a, b) for f, a, b in state_pairs(k.cur,
+                                                                  p.cur)]
+
+
+def clone_trip(trip):
+    return trip._replace(**{f: (v.clone() if v is not None else None)
+                            for f, v in trip._asdict().items()})
+
+
+def record_minimax_calls(MM, run, every):
+    """Run ``run()`` (a plain search) with ``bots.minimax.minimax_step``
+    wrapped: copies of the stack and the trip of every ``every``-th call
+    and of every call that pops a root child (the rare root updates),
+    before the call."""
+    real, snaps, n = MM.minimax_step, [], [0]
+
+    def f(env, stk, trip, maxp):
+        if n[0] % every == 0 or bool((trip.live & trip.finish
+                                      & (stk.sp == 1)).any()):
+            snaps.append((stk.clone(), clone_trip(trip), maxp))
+        n[0] += 1
+        return real(env, stk, trip, maxp)
+    MM.minimax_step = f
+    try:
+        run()
+    finally:
+        MM.minimax_step = real
+    return snaps
+
+
+def deepest_rows(MM, run):
+    """(run(), the largest ``sp`` (top row) of any stack after any
+    ``bots.minimax.minimax_step`` call of the run)."""
+    real, top = MM.minimax_step, [0]
+
+    def f(env, stk, trip, maxp):
+        real(env, stk, trip, maxp)
+        top[0] = max(top[0], int(stk.sp.max()))
+    MM.minimax_step = f
+    try:
+        return run(), top[0]
+    finally:
+        MM.minimax_step = real
+
+
+def minimax_decision(env, MM, name, kw, state, seed, player=0):
+    """One decision of bot ``name`` (``bots.minimax``, built with ``kw``)
+    for ``state``, its noise from a generator seeded with ``seed``:
+    (action, the searches' stacks, their root values or the scores)."""
+    import torch
+    make = dict(ABCD=MM.abcd_bot, IDABCD=MM.id_abcd_bot,
+                RTMinimax=MM.rt_minimax_bot, IDRTMinimax=MM.idrt_minimax_bot,
+                IDRTMinimaxRandomized=MM.idrt_minimax_randomized_bot,
+                SampledABCD=MM.sampled_abcd_bot)[name]
+    bot = make(env, **kw)
+    g = torch.Generator(device=env.device)
+    g.manual_seed(seed)
+    nz = bot.draw(g, state.batch)
+    b = bot.bot
+    if name == "IDRTMinimaxRandomized":
+        arms, valid, score, stk = b.scores(state, player, nz)
+        return bot(state, player, nz), [stk], [arms, valid, score]
+    if name == "SampledABCD":
+        mine, V = b.values(state, player, nz)
+        return bot(state, player, nz), [], [mine, V]
+    out = [run(state, player) for run in (b.runs if hasattr(b, "runs")
+                                          else [b.run])]
+    return out[-1][0], [o[2] for o in out], [o[1] for o in out]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -408,10 +551,12 @@ def main() -> int:
     from microrts_tpu_torch.models.gridnet_policy import (
         ActionSpace, GridnetPolicy, action_logprob_plain, greedy_action_plain,
         gumbel_noise, sample_action_plain)
+    from microrts_tpu_torch.bots import minimax as MM
     from microrts_tpu_torch.bots import treesearch as TS
     from microrts_tpu_torch.bots.search import monte_carlo_bot
     from microrts_tpu_torch.eval import tournament as TN
     from microrts_tpu_torch.ops import arms as AR
+    from microrts_tpu_torch.ops import enumerate as EN
     from microrts_tpu_torch.ops import evaluation as EV
     from microrts_tpu_torch.ops import playout as PO
     from microrts_tpu_torch.profile_step import device_busy
@@ -835,6 +980,89 @@ def main() -> int:
           f"{sum(map(len, usnaps.values()))} node-array updates of plain "
           f"NaiveMCTS and UCT searches ({TREE_GAMES} games; steps "
           f"{tree_cases}) equal to plain", flush=True)
+    # K12e: enum_next, eight successive draws of both players' odometers
+    # from init (four with every lane drawing, four with every other
+    # lane), on every 3rd recorded tick, every 4th rush record, a record
+    # where no unit can act and a resource-tight one
+    t1 = time.perf_counter()
+    rs3 = rush_records[3]
+    ens = ([r["s"] for r in records[::3]] + rush_records[1::4]
+           + [rs3.replace(busy=rs3.utype > 0),
+              rs3.replace(resources=rs3.resources.clamp(max=2))])
+    enum_stats = dict(draws=0, valid=0, empty=0, exhausted=0, max_trips=0)
+    for st in ens:
+        for p in (0, 1):
+            (ki, kn), (pi, pn) = (EN.make_enumerator(e) for e in (kenv, penv))
+            kod, kctx = ki(st, p)
+            pod, pctx = pi(st, p)
+            for i in range(8):
+                act = (None if i < 4 else
+                       torch.arange(B, device=dev) % 2 == i % 2)
+                ko, po = kn(kod, kctx, active=act), pn(pod, pctx, active=act)
+                errs["enum_next"] = max(errs["enum_next"], expect_equal(
+                    "enum_next", [("arms", ko[0], po[0]),
+                                  ("valid", ko[1], po[1]),
+                                  ("trips", ko[2], po[2]),
+                                  ("choice", kod.choice, pod.choice),
+                                  ("more", kod.more, pod.more)]))
+                live = torch.ones(B, dtype=torch.bool, device=dev) \
+                    if act is None else act
+                enum_stats["draws"] += int(live.sum())
+                enum_stats["valid"] += int(ko[1].sum())
+                enum_stats["empty"] += int((ko[1] & (ko[0] < 0).flatten(
+                    1).all(1)).sum())
+                enum_stats["exhausted"] += int((live & ~ko[1]).sum())
+                enum_stats["max_trips"] = max(enum_stats["max_trips"],
+                                              int(ko[2].max()))
+    if min(enum_stats.values()) == 0:
+        raise AssertionError(f"the enum_next inputs miss a case: "
+                             f"{enum_stats}")
+    # K12f: every 5th minimax_step call (and every one that pops a root
+    # child) of plain ABCD and RTMinimax searches of 16 rush records, each
+    # held kernel vs plain from the same copies
+    msnaps = []
+    for name in ("ABCD", "RTMinimax"):
+        for p in (0, 1):
+            msnaps += record_minimax_calls(MM, lambda: minimax_decision(
+                penv, MM, name, dict(MM_REDUCED[name],
+                                     node_budget=MM_SNAPSHOT_BUDGET),
+                tree_state, 33, p), MM_SNAPSHOT_EVERY)
+    # A search never draws past its node's last joint action (all NONE,
+    # always consistent, ends every odometer), so its exhausted draws are
+    # held on each snapshot's trip with the pushes turned into exhausted
+    # draws
+    mm_cases = dict(pops=0, prunes=0, pushes=0, root_updates=0,
+                    exhausted_draws=0)
+    for stk, trip, maxp in msnaps:
+        for variant in (trip, trip._replace(push=torch.zeros_like(
+                trip.push))):
+            kst, pst = stk.clone(), stk.clone()
+            MM.minimax_step(kenv, kst, variant, maxp)
+            MM.minimax_step(penv, pst, variant, maxp)
+            errs["minimax_step"] = max(errs["minimax_step"], expect_equal(
+                "minimax_step", stack_pairs(kst, pst)))
+        mm_cases["exhausted_draws"] += int((trip.live & ~trip.finish).sum())
+        rows = torch.arange(stk.sp.shape[0], device=dev)
+        top = stk.sp.long()
+        pop = trip.live & trip.finish
+        kst = stk.clone()
+        MM.minimax_step(penv, kst, trip, maxp)
+        mm_cases["pops"] += int(pop.sum())
+        mm_cases["prunes"] += int((pop & stk.od.more[rows, top]).sum())
+        mm_cases["pushes"] += int(trip.push.sum())
+        mm_cases["root_updates"] += int((pop & (top == 1) & (
+            kst.best[:, 0] != stk.best[:, 0])).sum())
+    if min(mm_cases.values()) == 0:
+        raise AssertionError(f"the minimax_step snapshots miss a case: "
+                             f"{mm_cases}")
+    torch.cuda.synchronize()
+    print(f"    enum_next on {len(ens)} records x {B} lanes (the last two "
+          f"with no unit able to act and with the balance at most 2), both "
+          f"players, 8 draws each ({enum_stats}), and {len(msnaps)} "
+          f"minimax_step calls of plain ABCD and RTMinimax searches "
+          f"({TREE_GAMES} games; lanes {mm_cases}, the exhausted draws "
+          f"on the trips with the pushes cleared) equal to plain "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
     print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
           f"(max |diff| {errs})", flush=True)
 
@@ -1010,6 +1238,64 @@ def main() -> int:
                                                          *ba),
         nbytes(bw.path, bw.edge, bw.plen, bw.leaf, ba[0]) + edges * 16
         + 2 * Bt * (bw.path.shape[1] + 1) * 8)
+    # enum_next (the first draw from init of player 0 on a rush record,
+    # every lane active; each call on its own copy of the odometer): an
+    # active lane reads its digits, every cell's first legal-arm word and
+    # the acting cells' other words, the claim flags, spend and balance,
+    # and writes its digits, arms, valid flag and trip count; ~30 int32
+    # operations a cell and trip, over this input's trips
+    eod, ectx = EN.make_enumerator(kenv)[0](rs3, 0)
+    NW = ectx.la.shape[-1]
+    Lc = H * W + 2 * W
+    n_act = int(((ectx.la[..., 0] & 1) != 0).sum())
+    etrips = EN.make_enumerator(penv)[1](EN.Odometer(
+        eod.choice.clone(), eod.more.clone()), ectx)[2]
+    enum_bytes = (B * (H * W * 4 * 4 + Lc + 8 + 2 + 4)
+                  + n_act * (NW - 1) * 4)
+    enum_ops = int(etrips.sum()) * H * W * 30
+
+    def odometers(n):
+        return iter([EN.Odometer(eod.choice.clone(), eod.more.clone())
+                     for _ in range(n)])
+    kods, pods = odometers(403), odometers(43)
+    kn_t, pn_t = EN.make_enumerator(kenv)[1], EN.make_enumerator(penv)[1]
+    timing["enum_next"] = (lambda: kn_t(next(kods), ectx),
+                           lambda: pn_t(next(pods), ectx),
+                           enum_bytes, enum_ops, INT32_OPS_PER_S)
+    # minimax_step (the snapshot with the most pushes; each call on its
+    # own copy of the stack): pops read a few scalars and copy the state
+    # of the new top into the lane's state; pushes read the child's state
+    # (and its mover's mask: channel 0, the whole row where a cell can
+    # act), write it twice and write the packed legal arms, digits, drawn
+    # arms, claim flags and ~12 scalars; other live lanes count the trip
+    mstk, mtrip, mmaxp = max(msnaps, key=lambda x: int(x[1].push.sum()))
+    Bm = mstk.sp.shape[0]
+    HW = H * W
+    plane_b = sum(getattr(mstk.cur, f)[0].numel()
+                  * getattr(mstk.cur, f).element_size()
+                  for f in FIELD_DTYPES)
+    mpop = mtrip.live & mtrip.finish
+    mpush = mtrip.push
+    mtop = mstk.sp.long()
+    rows = torch.arange(Bm, device=dev)
+    hits = int((mpop & (mtop == 1)).sum())
+    firsts = int((mpush & (mtop == 0) & ~mstk.root_set).sum())
+    n_can = (int(((mtrip.mask2[..., 0] != 0)
+                  & mpush[:, None, None]).sum())
+             if mtrip.mask2 is not None else 0)
+    M = 23 + cfg.num_types + asp.diam ** 2
+    mm_bytes = (Bm * 7 + int(mpop.sum()) * (48 + 2 * plane_b)
+                + hits * HW * 8
+                + int(mpush.sum()) * (3 * plane_b + HW * 4 * (NW + 4) + Lc
+                                      + 48)
+                + n_can * (M - 1) * 4 + firsts * HW * 4
+                + int((mtrip.live & ~mtrip.finish & ~mpush).sum()) * 8)
+    kst_pool = iter([mstk.clone() for _ in range(403)])
+    pst_pool = iter([mstk.clone() for _ in range(43)])
+    timing["minimax_step"] = (
+        lambda: MM.minimax_step(kenv, next(kst_pool), mtrip, mmaxp),
+        lambda: MM.minimax_step(penv, next(pst_pool), mtrip, mmaxp),
+        mm_bytes)
     assert A == lg.shape[-1]
     times = {}
     print("    device time per call (queued; host-paced in brackets):")
@@ -1025,6 +1311,7 @@ def main() -> int:
               f"{max(bound, op_bound) * 1e3:6.2f} us by {by} "
               f"({byts / 1e6:.2f} MB)", flush=True)
     del lg, lmask, lact, plg, plp, pent, pobj
+    timing.clear()   # the timed copies of odometers and stacks
 
     # ---- [5] the main path through the kernels, next to the plain path
     kvec = VecGridnetEnv(kenv, B, max_steps=MAX_STEPS)
@@ -1055,7 +1342,7 @@ def main() -> int:
                 splice_obs=1, policy_sample=0, policy_logprob_fwd=0,
                 policy_logprob_bwd=0, rush=0, event_jump=0, evaluate=0,
                 arm_sample=0, arms_to_action=0, mcts_descend=0,
-                mcts_backprop=0)
+                mcts_backprop=0, enum_next=0, minimax_step=0)
     if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
@@ -1682,7 +1969,150 @@ def main() -> int:
               f"what the script held before); {kind}, {smi}", flush=True)
     print(f"    [11] took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- [12] results
+    # ---- [12] minimax: one decision of each of the six bots on the 16
+    # recorded rush games at reduced budgets, kernel vs plain with the
+    # same draws; 16 ABCD-vs-WorkerRush games to 16 cycles; then one
+    # decision of the 64 timed games at the JAX defaults, timed
+    t0 = time.perf_counter()
+    mm_phase = {}
+    for name, kw in MM_REDUCED.items():
+        t1 = time.perf_counter()
+        out = []
+        for env in (kenv, penv):
+            KN.reset_counts()
+            out.append(minimax_decision(env, MM, name, kw, tree_state, 44)
+                       + (KN.counts(),))
+        (ka, kst, kx, kc), (pa, pst, px, pc) = out
+        pairs = [("actions", ka, pa)]
+        for i, (a, b) in enumerate(zip(kst, pst)):
+            pairs += [(f"search {i} {lab}", x, y)
+                      for lab, x, y in stack_pairs(a, b)]
+        pairs += [(f"value {i}", a, b) for i, (a, b) in enumerate(zip(kx,
+                                                                      px))]
+        expect_equal(f"{name} decision", pairs)
+        path = MM_KERNELS[name]
+        want = ("enum_next", "minimax_step") if name != "SampledABCD" else ()
+        if (any(kc[n] == 0 for n in want)
+                or any(kc[n] for n in kc if n not in path)
+                or (name == "SampledABCD" and (kc["enum_next"]
+                                               or kc["minimax_step"]))
+                or any(pc.values())):
+            raise AssertionError(f"a {name} decision launched {kc} (plain "
+                                 f"{pc}); want enum_next and minimax_step "
+                                 f"but for SampledABCD, and only {path}")
+        mm_phase[name] = kc
+        trips = [int(t.it.max()) for t in kst]
+        print(f"[12] {name}: one decision of {TREE_GAMES} games ({kw}) "
+              f"identical to the plain path: stacks (largest trip count "
+              f"per search {trips}), values and actions; launches "
+              f"{ {n: c for n, c in kc.items() if c} } "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    t1 = time.perf_counter()
+    TN._games_fn = recording_games_fn
+    out = []
+    for env in (kenv, penv):
+        w = TN.play_matches(env, MM.abcd_bot(env, **MM_REDUCED["ABCD"]),
+                            make_bot("WorkerRush", env), TREE_GAMES,
+                            MM_GAME_CYCLES, seed=29)
+        torch.cuda.synchronize()
+        out.append(games.pop())
+        if not (out[-1][0].cpu().numpy() == w).all():
+            raise AssertionError("play_matches' winners are not its run's")
+    TN._games_fn = games_fn
+    expect_equal("ABCD vs WorkerRush", state_pairs(out[0][1], out[1][1])
+                 + [("winners", out[0][0], out[1][0])])
+    print(f"    ABCD ({MM_REDUCED['ABCD']}) vs WorkerRush (play_matches): "
+          f"{TREE_GAMES} games to {MM_GAME_CYCLES} cycles ({out[0][2]} "
+          f"frames) identical to the plain path "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    del out
+    for name, kw in MM_DEEP.items():
+        t1 = time.perf_counter()
+        KN.reset_counts()
+        ka, kst, kx = minimax_decision(kenv, MM, name, kw, big, 45)
+        kc = KN.counts()
+        (pa, pst, px), top = deepest_rows(
+            MM, lambda: minimax_decision(penv, MM, name, kw, big, 45))
+        pairs = [("actions", ka, pa)]
+        for i, (a, b) in enumerate(zip(kst, pst)):
+            pairs += [(f"search {i} {lab}", x, y)
+                      for lab, x, y in stack_pairs(a, b)]
+        pairs += [(f"value {i}", a, b) for i, (a, b) in enumerate(zip(kx,
+                                                                      px))]
+        expect_equal(f"{name} decision at the defaults' shapes", pairs)
+        want = ("enum_next", "minimax_step") if name != "SampledABCD" else ()
+        if (any(kc[n] == 0 for n in want)
+                or any(kc[n] for n in kc if n not in MM_KERNELS[name])):
+            raise AssertionError(f"a {name} decision at the defaults' "
+                                 f"shapes launched {kc}")
+        shape = ([tuple(st.alpha.shape) for st in kst] if kst
+                 else [tuple(x.shape) for x in kx])
+        print(f"    {name}: one decision of {TREE_TIME_GAMES} games at the "
+              f"defaults' shapes ({kw}) identical to the plain path: stacks "
+              f"{shape} (lanes, rows; deepest row used {top}), values and "
+              f"actions; launches {kc['enum_next']} enum_next, "
+              f"{kc['minimax_step']} minimax_step "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+        del kst, pst, kx, px
+    mm_counts, mm_rates = {}, {}
+    for name in MM_TIMED:
+        bot = make_bot(name, kenv)
+        g = torch.Generator(device=dev)
+        g.manual_seed(52)
+        nz = bot.draw(g, TREE_TIME_GAMES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        KN.reset_counts()
+        t1 = time.perf_counter()
+        act = bot(big, 0, nz)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        tc = KN.counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        path = MM_KERNELS[name]
+        if (any(tc[n] for n in tc if n not in path)
+                or (name != "SampledABCD"
+                    and not (tc["enum_next"] and tc["minimax_step"]))):
+            raise AssertionError(f"a timed {name} decision launched {tc}")
+        if act.shape != (TREE_TIME_GAMES, H, W, 7) or not bool(
+                (act[..., 0] > 0).any()):
+            raise AssertionError(f"{name}: no unit acts in the decision")
+        mm_counts[name], mm_rates[name] = tc, TREE_TIME_GAMES / sec
+        print(f"    {name} at the JAX defaults: one decision of "
+              f"{TREE_TIME_GAMES} games in {sec:.3f} s: game-decisions/s/card "
+              f"{TREE_TIME_GAMES / sec:.2f}; {sum(tc.values())} launches "
+              f"{ {n: c for n, c in tc.items() if c} }; peak device memory "
+              f"{peak:.2f} GiB ({peak - held:.2f} GiB above what the script "
+              f"held before); {kind}, {smi}", flush=True)
+        t2 = time.perf_counter()
+        pbot = (MM.abcd_bot(kenv, node_budget=MM_PROFILE_ABCD_BUDGET)
+                if name == "ABCD" else bot)
+        # the card's kernels only: tracing every host operation too would
+        # slow the decision and take seconds to read back
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            pbot(big, 0, nz)
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t1) * 1e6
+        busy, kern = device_busy(prof)
+        top = {a.key[:24]: round(a.self_device_time_total) for a in kern[:5]}
+        mine = {n: round(sum(a.self_device_time_total for a in kern
+                             if a.key.startswith(n + "_kernel")))
+                for n in ("enum_next", "minimax_step")}
+        print(f"    {name}: device busy {100 * busy / window:.1f}% of a "
+              f"profiled decision (node budget "
+              f"{MM_PROFILE_ABCD_BUDGET if name == 'ABCD' else 'as timed'}; "
+              f"{busy:.0f} of {window:.0f} us); enum_next/minimax_step "
+              f"device time {mine} us; top kernels {top} us "
+              f"({time.perf_counter() - t2:.1f} s)", flush=True)
+        del prof, kern
+    for name in ("IDABCD", "IDRTMinimax"):
+        mm_counts[name] = mm_phase[name]
+    print(f"    [12] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- [13] results
     kernels = []
     tree_k = ("arm_sample", "arms_to_action", "mcts_descend",
               "mcts_backprop")
@@ -1690,18 +2120,19 @@ def main() -> int:
         kms, pms, bound, byts, by = times[k.name]
         new = k.name in ("event_jump", "evaluate")
         launches = (tree_counts["NaiveMCTS"][k.name] if k.name in tree_k
+                    else mm_counts["ABCD"][k.name]
+                    if k.name in ("enum_next", "minimax_step")
                     else mc_counts[k.name] if new else upd_counts[k.name])
+        by_phase = {"5": counts[k.name], "6": roll_counts[k.name],
+                    "7": upd_counts[k.name], "8": rr_counts[k.name],
+                    "9": mc_counts[k.name], "10": ev_counts[k.name],
+                    "11 NaiveMCTS": tree_counts["NaiveMCTS"][k.name],
+                    "11 UCT": tree_counts["UCT"][k.name]}
+        by_phase.update({f"12 {n}": c[k.name] for n, c in mm_counts.items()})
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
             source=k.source, replaces=k.replaces, launches=launches,
-            launches_by_phase={"5": counts[k.name], "6": roll_counts[k.name],
-                               "7": upd_counts[k.name],
-                               "8": rr_counts[k.name],
-                               "9": mc_counts[k.name],
-                               "10": ev_counts[k.name],
-                               "11 NaiveMCTS": tree_counts["NaiveMCTS"][
-                                   k.name],
-                               "11 UCT": tree_counts["UCT"][k.name]},
+            launches_by_phase=by_phase,
             max_abs_err=errs[k.name], ms=kms, plain_ms=pms, bound_ms=bound,
             bound_by=by, library_ms=None))
     print(json.dumps({"kernels": kernels}))

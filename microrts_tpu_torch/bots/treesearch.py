@@ -54,13 +54,19 @@ I32 = torch.int32
 F32 = torch.float32
 
 
+def stacked_rows(states: State, n1: int, idx: torch.Tensor) -> State:
+    """Row ``idx[b]`` (int32 ``[B]``) of every game ``b`` of a stacked
+    ``State`` with ``n1`` rows a game (row ``b * n1 + i``): a ``State``
+    ``[B]``."""
+    r = (torch.arange(idx.shape[0], device=idx.device) * n1 + idx).long()
+    return State(**{f: getattr(states, f).index_select(0, r)
+                    for f in FIELD_DTYPES})
+
+
 def node_states(tree, idx: torch.Tensor) -> State:
     """The states of node ``idx[b]`` (int32 ``[B]``) of every game ``b``:
     a ``State`` ``[B]``."""
-    n1 = tree.nplayer.shape[1]
-    r = (torch.arange(idx.shape[0], device=idx.device) * n1 + idx).long()
-    return State(**{f: getattr(tree.states, f).index_select(0, r)
-                    for f in FIELD_DTYPES})
+    return stacked_rows(tree.states, tree.nplayer.shape[1], idx)
 
 
 def _issue_player(env: GridnetEnv, s: State, action, player) -> State:

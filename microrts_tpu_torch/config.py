@@ -90,8 +90,16 @@ _TREE = dict(
     DownsamplingUCT=("uct_tree_bot", dict(n_candidates=4)),
     UCTFirstPlayUrgency=("uct_tree_bot", dict(fpu=0.5)))
 TREE_BOTS = tuple(_TREE)
+# the minimax family: name -> bots.minimax constructor, with the JAX
+# package's registry arguments (microrts_tpu/config.py:239-250: the
+# defaults)
+_MINIMAX = dict(
+    ABCD="abcd_bot", SampledABCD="sampled_abcd_bot", IDABCD="id_abcd_bot",
+    RTMinimax="rt_minimax_bot", IDRTMinimax="idrt_minimax_bot",
+    IDRTMinimaxRandomized="idrt_minimax_randomized_bot")
+MINIMAX_BOTS = tuple(_MINIMAX)
 PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI") + RUSH_BOTS \
-    + SEARCH_BOTS + TREE_BOTS
+    + SEARCH_BOTS + TREE_BOTS + MINIMAX_BOTS
 
 # names the JAX package has and the port not yet: the ROADMAP.md queue 1
 # item that ports them
@@ -107,9 +115,7 @@ _NOT_PORTED = dict(
         "SCV", "SCVAdaptive", "AHTN", "LSI", "PuppetNoPlan",
         "PuppetSearchMCTS", "PuppetSearchAB", "BS1_NaiveMCTS",
         "BS2_NaiveMCTS", "BS3_NaiveMCTS", "PortfolioAI", "PGSAI",
-        "ContinuingNaiveMCTS",
-        "ABCD", "SampledABCD", "IDABCD", "RTMinimax", "IDRTMinimax",
-        "IDRTMinimaxRandomized", "CooperativeAI")})
+        "ContinuingNaiveMCTS", "CooperativeAI")})
 
 
 def make_bot(name: str, env):
@@ -132,6 +138,9 @@ def make_bot(name: str, env):
         from .bots import treesearch as TS
         fn, kw = _TREE[name]
         return getattr(TS, fn)(env, **kw)
+    if name in _MINIMAX:
+        from .bots import minimax as MM
+        return getattr(MM, _MINIMAX[name])(env)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name} is not ported yet: ROADMAP.md queue 1 "

@@ -250,6 +250,20 @@ class GridnetEnv:
             done = done | d2
         return c0, c1, state2, done
 
+    def step_vs(self, state: State, a0: torch.Tensor, bot_fn):
+        """Step with an external player-0 action and a scripted opponent
+        (JNIGridnetClient.gameStep; gridnet.py:400-418 of the JAX
+        package): ``a0`` is decoded and issued, ``bot_fn(state1, 1)`` (a
+        gridnet action int32 ``[B, H, W, 7]``) is decoded against the
+        post-issue state and issued, then one ``cycle``.  Returns (state',
+        player 0's rewards float32 [B, NR], done bool [B])."""
+        eng = self.engine
+        c0 = self.decode(state, a0, 0)
+        state1 = eng.issue_env(state, c0)
+        c1 = self.decode(state1, bot_fn(state1, 1), 1)
+        state2, done = eng.cycle(eng.issue_env(state1, c1))
+        return state2, self.rewards(state, c0, c1, state2)[:, 0], done
+
     def rewards(self, pre: State, c0: Candidates, c1: Candidates,
                 after: State) -> torch.Tensor:
         """Both players' rewards float32 [B, 2, NR] of the step from

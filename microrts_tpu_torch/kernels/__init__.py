@@ -8,8 +8,8 @@ at first use (all sources at once, one ``nvcc`` each), and loaded with
 The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
 ``EPILOGUE``, ``SPLICE_OBS``, ``SAMPLE``, ``LOGPROB``, ``LOGPROB_BWD``,
 ``RUSH``, ``EVENT_JUMP``, ``EVALUATE``, ``ARM_SAMPLE``,
-``ARMS_TO_ACTION``, ``MCTS_DESCEND``, ``MCTS_BACKPROP``) take CUDA tensors
-only: they
+``ARMS_TO_ACTION``, ``MCTS_DESCEND``, ``MCTS_BACKPROP``, ``ENUM_NEXT``,
+``MINIMAX_STEP``) take CUDA tensors only: they
 check device, dtype, shape and contiguity, allocate the outputs, launch on
 PyTorch's current stream, raise if the launch reports a CUDA error, and
 count their launches in ``.launches``.  The callers in ``engine``,
@@ -38,7 +38,7 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 # the kernel sources (csrc/<name>.cu), one shared library each
 NAMES = ("actor", "decode", "issue_env", "cycle", "epilogue",
          "splice_obs", "policy_sample", "policy_logprob", "rush", "event",
-         "evaluation", "arms", "tree")
+         "evaluation", "arms", "tree", "enumerate", "minimax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAXT = 16
@@ -187,6 +187,35 @@ class _StepP(ctypes.Structure):
         "slot", "cands")]
 
 
+class _EnumDims(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("H", "W", "T", "NW", "R")]
+
+
+class _MMDims(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("H", "W", "T", "D", "M", "NW",
+                                            "S")]
+
+
+# the minimax stack's tables (bots/minimax.py Stack) and their types
+STACK_DTYPES = dict(
+    alpha=torch.float32, beta=torch.float32, best=torch.float32,
+    mover=torch.int32, nextsim=torch.int32, down_arms=torch.int32,
+    choice=torch.int32, more=torch.bool, la=torch.int32,
+    claimed0=torch.bool, spent0=torch.int32, balance=torch.int32,
+    root_arms=torch.int32, root_set=torch.bool, sp=torch.int32,
+    done=torch.bool, it=torch.int32, npush=torch.int32)
+TRIP_FIELDS = ("live", "finish", "push", "arms", "mask2", "mover2",
+               "nextsim2", "leaf2", "best2")
+
+
+class _StackP(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in STACK_DTYPES]
+
+
+class _TripP(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in TRIP_FIELDS]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -231,6 +260,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             mcts_backprop=[ctypes.POINTER(_TreeDims), _I, _I,
                            ctypes.POINTER(_TreeP), ctypes.POINTER(_WalkP), _P,
                            _P]),
+        "enumerate": dict(enum_next=[cfg, ctypes.POINTER(_EnumDims), _I, _P,
+                                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P]),
+        "minimax": dict(minimax_step=[cfg, ctypes.POINTER(_MMDims), _I,
+                                      ctypes.POINTER(_StackP),
+                                      ctypes.POINTER(_TripP), st, st, st, _I,
+                                      _P]),
     }[name]
     for entry, argtypes in entries.items():
         fn = getattr(lib, f"{entry}_launch")
@@ -944,6 +980,94 @@ class _MctsBackprop(Kernel):
                          _stream(v.device))
 
 
+class _EnumNext(Kernel):
+    def __call__(self, cfg: EngineConfig, sp, od, ctx, row: torch.Tensor,
+                 active: torch.Tensor):
+        """One ``next_action`` of every active lane's odometer row
+        ``row[b]`` in place (``ops.enumerate.make_enumerator``): ``od``
+        choice int32 ``[B, R, HW]``, more bool ``[B, R]``; ``ctx`` la int32
+        ``[B, R, HW, NW]``, claimed0 bool ``[B, R, L]``, spent0 / balance
+        int32 ``[B, R]``.  Returns (arms int32 ``[B, HW]``, valid bool
+        ``[B]``, trips int32 ``[B]``)."""
+        B, R, HW = od.choice.shape
+        dev = od.choice.device
+        H, W = cfg.height, cfg.width
+        NW = (sp.n_arms + 31) // 32
+        L = HW + 2 * W
+        if HW != H * W or HW > 1024:
+            raise ValueError(f"enum_next: {HW} cells for a {H}x{W} board "
+                             "(at most 1024)")
+        ptrs = [_check("choice", od.choice, torch.int32, (B, R, HW), dev),
+                _check("more", od.more, torch.bool, (B, R), dev),
+                _check("row", row, torch.int32, (B,), dev),
+                _check("active", active, torch.bool, (B,), dev),
+                _check("la", ctx.la, torch.int32, (B, R, HW, NW), dev),
+                _check("claimed0", ctx.claimed0, torch.bool, (B, R, L), dev),
+                _check("spent0", ctx.spent0, torch.int32, (B, R), dev),
+                _check("balance", ctx.balance, torch.int32, (B, R), dev)]
+        arms = torch.empty((B, HW), dtype=torch.int32, device=dev)
+        valid = torch.empty(B, dtype=torch.bool, device=dev)
+        trips = torch.empty(B, dtype=torch.int32, device=dev)
+        dims = _EnumDims(H=H, W=W, T=sp.num_types, NW=NW, R=R)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(dims), B,
+                         *ptrs, arms.data_ptr(), valid.data_ptr(),
+                         trips.data_ptr(), _stream(dev))
+        return arms, valid, trips
+
+
+class _MinimaxStep(Kernel):
+    def __call__(self, cfg: EngineConfig, sp, stk, trip, maxp: int) -> None:
+        """One trip's pop or push of every lane's DFS stack, in place
+        (``bots.minimax.minimax_step``)."""
+        B, n1 = stk.alpha.shape
+        dev = stk.alpha.device
+        H, W = cfg.height, cfg.width
+        HW, L = H * W, H * W + 2 * W
+        NW = (sp.n_arms + 31) // 32
+        M = 23 + sp.num_types + sp.diam * sp.diam
+        tabs = dict(stk.tensors())
+        tabs.update({f.split(".", 1)[1]: tabs.pop(f) for f in list(tabs)
+                     if "." in f})
+        shapes = dict(down_arms=(B, n1, H, W), choice=(B, n1, HW),
+                      la=(B, n1, HW, NW), claimed0=(B, n1, L),
+                      root_arms=(B, H, W), root_set=(B,), sp=(B,),
+                      done=(B,), it=(B,), npush=(B,))
+        sptr = _StackP(**{f: _check(f, tabs[f], dt, shapes.get(f, (B, n1)),
+                                    dev)
+                          for f, dt in STACK_DTYPES.items()})
+        if stk.states.batch != B * n1 or stk.cur.batch != B:
+            raise ValueError("minimax_step: state batch mismatch")
+        tp = dict(live=_check("live", trip.live, torch.bool, (B,), dev),
+                  finish=_check("finish", trip.finish, torch.bool, (B,), dev),
+                  push=_check("push", trip.push, torch.bool, (B,), dev),
+                  arms=_check("arms", trip.arms, torch.int32, (B, H, W),
+                              dev))
+        st2 = None
+        if trip.st2 is not None:
+            tp.update(
+                mask2=_check("mask2", trip.mask2, torch.int32, (B, H, W, M),
+                             dev),
+                mover2=_check("mover2", trip.mover2, torch.int32, (B,), dev),
+                nextsim2=_check("nextsim2", trip.nextsim2, torch.int32, (B,),
+                                dev),
+                leaf2=_check("leaf2", trip.leaf2, torch.bool, (B,), dev),
+                best2=_check("best2", trip.best2, torch.float32, (B,), dev))
+            if trip.st2.batch != B:
+                raise ValueError("minimax_step: child state batch mismatch")
+            st2 = ctypes.byref(_state_p(trip.st2, cfg)[0])
+        elif bool(trip.push.any()):
+            raise ValueError("minimax_step: pushing lanes without a child")
+        dims = _MMDims(H=H, W=W, T=sp.num_types, D=sp.diam, M=M, NW=NW,
+                       S=n1 - 1)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(dims), B,
+                         ctypes.byref(sptr), ctypes.byref(_TripP(**tp)),
+                         ctypes.byref(_state_p(stk.states, cfg)[0]),
+                         ctypes.byref(_state_p(stk.cur, cfg)[0]), st2,
+                         int(maxp), _stream(dev))
+
+
 # ``replaces``: the JAX function each kernel stands for (file:line)
 ACTOR = _Actor("actor", "microrts_tpu/engine/kernel.py:742")  # + scripted.py:69
 DECODE = _Decode("decode", "microrts_tpu/env/gridnet.py:139")
@@ -979,9 +1103,16 @@ MCTS_DESCEND = _MctsDescend("mcts_descend",
 # + treesearch.py:390-392 (the leaf's credit), :751-760 (UCT)
 MCTS_BACKPROP = _MctsBackprop("mcts_backprop",
                               "microrts_tpu/bots/treesearch.py:394", "tree")
+# + enumerate.py:121 (_arms_of), :141 (_consistency), :167 (_increment)
+ENUM_NEXT = _EnumNext("enum_next", "microrts_tpu/ops/enumerate.py:180",
+                      "enumerate")
+# + minimax.py:159-181 (pop), :194-225 (push), ops/enumerate.py:105 (init)
+MINIMAX_STEP = _MinimaxStep("minimax_step",
+                            "microrts_tpu/bots/minimax.py:151", "minimax")
 KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE,
            LOGPROB, LOGPROB_BWD, RUSH, EVENT_JUMP, EVALUATE, ARM_SAMPLE,
-           ARMS_TO_ACTION, MCTS_DESCEND, MCTS_BACKPROP)
+           ARMS_TO_ACTION, MCTS_DESCEND, MCTS_BACKPROP, ENUM_NEXT,
+           MINIMAX_STEP)
 
 
 def reset_counts() -> None:

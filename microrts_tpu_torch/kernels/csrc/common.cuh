@@ -72,6 +72,42 @@ __device__ __forceinline__ void to_action(int arm, int T, int D,
   for (int i = 0; i < 7; ++i) o[i] = arm > 0 ? comp[i] : 0;
 }
 
+// Legal-arm words a cell (arm a is bit a % 32 of word a / 32): the search
+// bots' catalog (13 + 4T + D*D arms) at T <= 16 and D <= 5.
+#define MAXNW 4
+
+// The claim slot of a move or produce of cell ``cell`` in direction ``dir``
+// (up, right, down, left) in the flat space of L = H*W + 2W slots
+// (ops/enumerate.py claim_slots); left and right wrap across rows, as in
+// Java's PlayerActionGenerator.
+__device__ __forceinline__ int claim_slot(int W, int cell, int dir) {
+  return W + cell + (dir == 0 ? -W : dir == 1 ? 1 : dir == 2 ? W : -1);
+}
+
+// Copy cell c of state row sr of s into row dr of d (the planes), and
+// the row's scalars.
+__device__ __forceinline__ void copy_planes(const StateP& d, size_t dr,
+                                            const StateP& s, size_t sr,
+                                            int HW, int c) {
+  const size_t i = dr * HW + c, j = sr * HW + c;
+  d.terrain[i] = s.terrain[j]; d.utype[i] = s.utype[j];
+  d.owner[i] = s.owner[j]; d.hp[i] = s.hp[j]; d.carried[i] = s.carried[j];
+  d.uid[i] = s.uid[j]; d.busy[i] = s.busy[j]; d.atype[i] = s.atype[j];
+  d.aparam[i] = s.aparam[j]; d.atx[i] = s.atx[j]; d.aty[i] = s.aty[j];
+  d.aptype[i] = s.aptype[j]; d.aticks[i] = s.aticks[j];
+  d.aorder[i] = s.aorder[j]; d.atime[i] = s.atime[j];
+}
+
+__device__ __forceinline__ void copy_scalars(const StateP& d, size_t dr,
+                                             const StateP& s, size_t sr) {
+  d.time[dr] = s.time[sr];
+  d.resources[2 * dr] = s.resources[2 * sr];
+  d.resources[2 * dr + 1] = s.resources[2 * sr + 1];
+  d.next_id[dr] = s.next_id[sr];
+  d.order_ctr[dr] = s.order_ctr[sr];
+  d.cancel_ctr[dr] = s.cancel_ctr[sr];
+}
+
 // Bump-allocate an aligned slice of dynamic shared memory.
 template <typename T>
 __device__ __forceinline__ T* carve(unsigned char*& p, int n) {

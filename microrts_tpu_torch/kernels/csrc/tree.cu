@@ -58,28 +58,6 @@ struct StepP {  // one descent step's inputs
   const int32_t* cands;   // UCT: the expanded state's candidates
 };
 
-__device__ __forceinline__ void copy_planes(const StateP& d, size_t dr,
-                                            const StateP& s, size_t sr,
-                                            int HW, int c) {
-  const size_t i = dr * HW + c, j = sr * HW + c;
-  d.terrain[i] = s.terrain[j]; d.utype[i] = s.utype[j];
-  d.owner[i] = s.owner[j]; d.hp[i] = s.hp[j]; d.carried[i] = s.carried[j];
-  d.uid[i] = s.uid[j]; d.busy[i] = s.busy[j]; d.atype[i] = s.atype[j];
-  d.aparam[i] = s.aparam[j]; d.atx[i] = s.atx[j]; d.aty[i] = s.aty[j];
-  d.aptype[i] = s.aptype[j]; d.aticks[i] = s.aticks[j];
-  d.aorder[i] = s.aorder[j]; d.atime[i] = s.atime[j];
-}
-
-__device__ __forceinline__ void copy_scalars(const StateP& d, size_t dr,
-                                             const StateP& s, size_t sr) {
-  d.time[dr] = s.time[sr];
-  d.resources[2 * dr] = s.resources[2 * sr];
-  d.resources[2 * dr + 1] = s.resources[2 * sr + 1];
-  d.next_id[dr] = s.next_id[sr];
-  d.order_ctr[dr] = s.order_ctr[sr];
-  d.cancel_ctr[dr] = s.cancel_ctr[sr];
-}
-
 // UCT's choice at the walk's node: unexplored candidates first (or the
 // first-play urgency), else UCB1 (treesearch.py:680-700).
 __global__ void uct_select_kernel(TreeDims dm, TreeP t, WalkP w, int maxp,

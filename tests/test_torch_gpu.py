@@ -18,6 +18,8 @@ parameters after a PPO update on the kernel path against the plain path
 (see ``test_update_kernel_path_matches_plain_on_card``).
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -79,7 +81,7 @@ def test_kernel_path_equals_plain_on_card(map_rel):
         epilogue=ticks, splice_obs=ticks, policy_sample=0,
         policy_logprob_fwd=0, policy_logprob_bwd=0, rush=0, event_jump=0,
         evaluate=0, arm_sample=0, arms_to_action=0, mcts_descend=0,
-        mcts_backprop=0)
+        mcts_backprop=0, enum_next=0, minimax_step=0)
 
 
 def _states(env, B, ticks, seed):
@@ -397,10 +399,11 @@ def test_update_kernel_path_matches_plain_on_card():
         if plain:
             assert not any(counts.values()), counts
         else:
-            # every kernel of training; the decision-frame path's and
-            # the tree search's not
+            # every kernel of training; the decision-frame path's, the
+            # tree search's and the minimax search's not
             search = ("event_jump", "evaluate", "arm_sample",
-                      "arms_to_action", "mcts_descend", "mcts_backprop")
+                      "arms_to_action", "mcts_descend", "mcts_backprop",
+                      "enum_next", "minimax_step")
             assert all(v > 0 for n, v in counts.items()
                        if n not in search), counts
             assert not any(counts[n] for n in search), counts
@@ -740,3 +743,121 @@ def test_tree_kernels_reject_bad_input_on_card():
     with pytest.raises(ValueError):
         KN.ACTOR(env.cfg.engine, s, torch.zeros(3, dtype=torch.int32,
                                                 device="cuda"), masks=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_enum_next_equals_plain_on_card(map_rel):
+    """``enum_next`` (K12e): eight successive draws of both players'
+    odometers on recorded states, all lanes active and then every other
+    lane, equal the plain version (arms, valid, trips and the odometers
+    advanced in place); the initial state (no busy unit) too."""
+    _need_card()
+    from microrts_tpu_torch.ops import enumerate as EN
+    path = asset_path(map_rel)
+    kenv = GridnetEnv(path, device="cuda")
+    penv = GridnetEnv(path, device="cuda", plain=True)
+    seen = 0
+    for s in _random_states(penv, 16, 30, 13):
+        for p in (0, 1):
+            (ki, kn), (pi, pn) = (EN.make_enumerator(e) for e in (kenv, penv))
+            kod, kctx = ki(s, p)
+            pod, pctx = pi(s, p)
+            for i in range(8):
+                act = (None if i < 4 else
+                       torch.arange(s.batch, device="cuda") % 2 == i % 2)
+                got = kn(kod, kctx, active=act)
+                for a, b in zip(got, pn(pod, pctx, active=act)):
+                    assert torch.equal(a, b), (p, i)
+                assert torch.equal(kod.choice, pod.choice)
+                assert torch.equal(kod.more, pod.more)
+                seen += int(got[1].sum())
+    assert seen > 0
+
+
+@pytest.mark.gpu
+def test_minimax_kernels_equal_plain_on_card():
+    """ABCD, RTMinimax, IDRTMinimaxRandomized and SampledABCD decisions
+    through the kernels equal the plain path with the same draws: whole
+    stacks (row S too), root values and actions; ``enum_next`` and
+    ``minimax_step`` launched on the kernel path, none on the plain."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import minimax as MM
+    path = asset_path("maps/8x8/basesWorkers8x8.xml")
+    kenv = GridnetEnv(path, device="cuda")
+    penv = GridnetEnv(path, device="cuda", plain=True)
+    s = _random_states(penv, 8, 20, 9)[-1]
+    for make, kw in ((MM.abcd_bot, dict(max_depth=2, playout_len=8,
+                                        node_budget=48)),
+                     (MM.rt_minimax_bot, dict(lookahead=12, stack_cap=6,
+                                              node_budget=48))):
+        out = []
+        for env in (kenv, penv):
+            KN.reset_counts()
+            out.append(make(env, **kw).bot.run(s, 1) + (KN.counts(),))
+        (ka, kv, ks, kc), (pa, pv, ps, pc) = out
+        assert torch.equal(ka, pa) and torch.equal(kv, pv)
+        for f, t in ks.tensors().items():
+            assert torch.equal(t, ps.tensors()[f]), f
+        assert ks.states.equal(ps.states) == (True, "")
+        assert ks.cur.equal(ps.cur) == (True, "")
+        assert kc["enum_next"] > 0 and kc["minimax_step"] > 0
+        assert not any(pc.values())
+    for make, kw in ((MM.idrt_minimax_randomized_bot,
+                      dict(k_moves=4, repeats=4, lookahead=12, stack_cap=6,
+                           node_budget=24)),
+                     (MM.sampled_abcd_bot, dict(k_moves=4, playout_len=8))):
+        out = []
+        for env in (kenv, penv):
+            bot = make(env, **kw)
+            g = torch.Generator(device="cuda")
+            g.manual_seed(5)
+            KN.reset_counts()
+            out.append((bot(s, 0, bot.draw(g, s.batch)), KN.counts()))
+        assert torch.equal(out[0][0], out[1][0])
+        assert not any(out[1][1].values())
+        want = make is MM.idrt_minimax_randomized_bot
+        assert (out[0][1]["enum_next"] > 0) == want
+        assert (out[0][1]["minimax_step"] > 0) == want
+
+
+@pytest.mark.gpu
+def test_minimax_kernels_reject_bad_input_on_card():
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import minimax as MM
+    from microrts_tpu_torch.ops import arms as AR
+    from microrts_tpu_torch.ops import enumerate as EN
+    env = GridnetEnv(asset_path("maps/8x8/basesWorkers8x8.xml"),
+                     device="cuda")
+    sp = AR.arm_space(env)
+    s = env.reset(4)
+    od, ctx = EN.make_enumerator(env)[0](s, 0)
+    row = torch.zeros(4, dtype=torch.int32, device="cuda")
+    act = torch.ones(4, dtype=torch.bool, device="cuda")
+    cfg = env.cfg.engine
+    with pytest.raises(TypeError):
+        KN.ENUM_NEXT(cfg, sp, od._replace(choice=od.choice.long()), ctx, row,
+                     act)
+    with pytest.raises(ValueError):
+        KN.ENUM_NEXT(cfg, sp, od, ctx._replace(la=ctx.la[:, :, :, :2]), row,
+                     act)
+    with pytest.raises(ValueError):
+        KN.ENUM_NEXT(cfg, sp, od, ctx, row[:3], act)
+    with pytest.raises(TypeError):
+        KN.ENUM_NEXT(cfg, sp, od, ctx, row.long(), act)
+    stk = MM.new_stack(s, 3, ctx, act, row, row, row.float())
+    trip = MM.Trip(act, act, ~act, torch.full((4, 8, 8), -1,
+                                              dtype=torch.int32,
+                                              device="cuda"))
+    with pytest.raises(TypeError):
+        KN.MINIMAX_STEP(cfg, sp, stk, trip._replace(finish=row), 0)
+    with pytest.raises(ValueError):
+        KN.MINIMAX_STEP(cfg, sp, stk, trip._replace(push=act), 0)
+    with pytest.raises(TypeError):
+        KN.MINIMAX_STEP(cfg, sp, dataclasses.replace(stk,
+                                                     alpha=stk.alpha.double()),
+                        trip, 0)
+    KN.MINIMAX_STEP(cfg, sp, stk, trip, 0)
+    assert stk.done.all() and (stk.it == 1).all()
