@@ -7,7 +7,7 @@ Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
 envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the eighteen CUDA kernels (fifteen sources) from
+2. build: compiles the twenty-one CUDA kernels (seventeen sources) from
    ``microrts_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel; ``-Xptxas -v`` report printed);
 3. realistic states: runs the plain PyTorch path (RandomBiasedAI, bias 5,
@@ -17,6 +17,12 @@ envs:
    removed) for the winloss reward; then a plain WorkerRush-vs-LightRush
    run (each env opens with a few random ticks, so that the envs differ)
    records rush states, plus a copy with the bases removed (rebuilds);
+   then the plain partially observable (PO) path (RandomBiasedAI, both
+   players, fog-of-war decode and the full ``issue``) for 128 ticks from
+   the end of the rush run (units in contact), counting at every issue the conflicts of each kind
+   (cross-cycle position and resource cancels, chain cancels of a new
+   and of an earlier same-tick claim) and keeping the step's inputs every
+   16th tick and where a kind first occurs;
 4. kernel vs plain: every kernel output equals its plain version on those
    inputs (tolerance: exact; the policy sampler's and K7b's logprob and
    entropy within 1e-5 relative + 1e-4 absolute, K7b's gradient of the
@@ -49,13 +55,23 @@ envs:
    with their pushes turned into exhausted draws (a search never draws
    past its node's last joint action, all NONE), whole stacks, row S
    too, exact, the pops, prunes, pushes, root updates and exhausted
-   draws among them printed; each kernel and its plain version are
-   timed with CUDA events;
+   draws among them printed; ``issue`` (K11a) on both issues of every PO
+   record under the three move-conflict policies (random coins for
+   CANCEL_RANDOM, a drawn cancelation counter for CANCEL_ALTERNATING),
+   and on two-issue random candidate tables (half the units, then the
+   other half, stockpiles drawn) over PO and rush records, where every
+   conflict kind occurs (counts printed), whole states exact; ``issue``
+   against ``issue_env`` on slice 1's full-observation records (the
+   shortcut of the playouts and searches); ``po_state`` (K11b) and
+   ``obs_po`` (K11c, with the one-hot) for both players and a per-lane
+   player vector on the PO, rush and terminal records; ``decode`` with a
+   view on the PO records; each kernel and its plain version are timed
+   with CUDA events;
 5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
    kernels next to the plain path, same start and uniforms, 256 ticks
    with auto-resets; state, obs, rewards and dones equal at every tick;
    launches per step actor 2, decode 2, issue_env 2, cycle 1, epilogue 1,
-   splice_obs 1; then a steady window gives env-steps/s;
+   splice_obs 1, no other; then a steady window gives env-steps/s;
 6. the rollout: ``PPOTrainer._rollout`` (bf16 ``GridnetPolicy`` at width
    64 / 4 blocks, RandomBiasedAI opponent, cuDNN deterministic) through
    the kernels next to the plain path, 16 steps from the same states with
@@ -86,7 +102,7 @@ envs:
 8. the round robin: PassiveAI, RandomBiasedAI and the four rushes, 30
    ordered pairs x 34 games = 1020 lanes of one pool batch
    (``eval/tournament.round_robin``), through the kernels next to the
-   plain path with the same seed to 150 cycles (tables, winners and
+   plain path with the same seed to 100 cycles (tables, winners and
    final states equal; ``event_jump``, ``cycle``, the actor's, the
    step's and the rush kernels launched, ``evaluate`` not), and 64
    RandomBiasedAI vs WorkerRush games (``play_matches``) next to the
@@ -96,7 +112,7 @@ envs:
    seconds), frames, the table, and the device busy share of a profiled
    64-cycle run;
 9. MonteCarlo (K=12, playout_len 48): one decision of 64 recorded rush
-   games (768 playout lanes) and 24-cycle games against WorkerRush
+   games (768 playout lanes) and 16-cycle games against WorkerRush
    (``play_matches``), through the kernels next to the plain path with
    the same draws (actions, winners and final states equal;
    ``event_jump`` and ``evaluate`` launched); then eight timed
@@ -108,7 +124,7 @@ envs:
 11. tree search: one NaiveMCTS and one UCT decision of 16 rush records
    at a reduced budget (8 playouts, 16 nodes, 8 children or candidates,
    depth 4, playout_len 24) and 16 NaiveMCTS (2 playouts, depth 2,
-   playout_len 4) vs WorkerRush games to 32 cycles (``play_matches``),
+   playout_len 4) vs WorkerRush games to 16 cycles (``play_matches``),
    through the kernels next to the plain path with the same draws (whole
    trees, actions, winners and final states equal); on 64 recorded rush
    games at a decision frame of player 0, one decision of each at the
@@ -123,7 +139,7 @@ envs:
    the same draws (whole stacks, row S too, root values or scores, and
    actions equal; each bot launches ``enum_next`` and ``minimax_step``,
    SampledABCD neither, and no kernel outside its path), 16 ABCD-vs-
-   WorkerRush games to 16 cycles (``play_matches``) kernel vs plain
+   WorkerRush games to 8 cycles (``play_matches``) kernel vs plain
    (winners and final states equal), then one decision of each of
    ABCD, RTMinimax, IDRTMinimaxRandomized and SampledABCD on the 64 timed
    games at the defaults' stack and candidate shapes (ABCD depth 4,
@@ -134,23 +150,39 @@ envs:
    64 games at the JAX defaults (``make_bot``) of each of the four, timed:
    game-decisions/s/card, launches by kernel, peak memory, and the
    device's busy share of a profiled decision (ABCD's at a budget of 64);
-13. one JSON line of every kernel (launches: phase 7's for the training
+13. the PO main path: ``VecGridnetEnv(GridnetEnv(partial_obs=True))`` +
+   ``random_bot`` through the kernels next to the plain path, same start
+   (the end of [3]'s PO run) and uniforms, 256 ticks with auto-resets;
+   state, 8-plane observations, the one-hot of each player's view,
+   rewards and dones equal at every tick; launches per step actor 2,
+   po_state 2, decode 2, issue 2, cycle 1, epilogue 1, splice_obs 1,
+   obs_po 1, no other; a steady window gives PO env-steps/s and a
+   profiled one the card's busy share; ``MapPoolVecEnv(partial_obs=True)``
+   over basesWorkers16x16, TwoBasesBarracks16x16 and the padded
+   basesWorkers8x8 and NoWhereToRun9x8, 64 ticks kernel vs plain (resets
+   to each env's own map); a ``round_robin`` of the four PO rushes and
+   WorkerRush on the PO env (20 ordered pairs x 8 games) kernel vs plain
+   to 150 cycles (winners, tables, states equal), then timed to 2000
+   cycles: game-ticks/s;
+14. one JSON line of every kernel (launches: phase 7's for the training
    kernels, one MonteCarlo decision's for ``event_jump`` and
    ``evaluate``, one NaiveMCTS decision's at the defaults for K12b-d, one
-   ABCD decision's at the defaults for K12e-f; every phase's under
+   ABCD decision's at the defaults for K12e-f, the PO main path's for
+   K11a-c; every phase's under
    ``launches_by_phase``, [12] one entry a bot: the timed decision's, or
    for IDABCD and IDRTMinimax the reduced one's), the ``nvidia-smi``
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 No single PyTorch call computes any kernel's function (the engine, the
-bots and the masked factored categorical are the JAX package's own
-code), so every ``library_ms`` is null.  Any failure raises and the exit
+fog, the bots and the masked factored categorical are the JAX package's
+own code), so every ``library_ms`` is null.  Any failure raises and the exit
 code is not 0.  Without a CUDA device it exits with code 2 and prints no
 result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -199,14 +231,14 @@ TRAIN_KERNELS = ROLLOUT_KERNELS + ("policy_logprob_fwd", "policy_logprob_bwd",
 RR_BOTS = ("PassiveAI", "RandomBiasedAI", "WorkerRush", "LightRush",
            "HeavyRush", "RangedRush")
 RR_GAMES = 34            # per ordered pair: 30 pairs x 34 = 1020 lanes
-RR_CHECK_CYCLES = 150    # phase 8: the kernel run next to the plain path
+RR_CHECK_CYCLES = 100    # phase 8: the kernel run next to the plain path
 WIN_CHECK_GAMES = 64     # phase 8: RandomBiasedAI vs WorkerRush next to the
 WIN_CHECK_CYCLES = 450   # ... plain path (WorkerRush wins from tick 360)
 RR_CYCLES = 2000         # phase 8: timed at the JAX package's default
 RR_PROFILE_CYCLES = 64   # phase 8: the profiled window
 RR_KERNELS = ("actor", "decode", "issue_env", "cycle", "rush", "event_jump")
 MC_GAMES = 64            # phase 9: MonteCarlo (K=12, L=48) vs WorkerRush
-MC_CHECK_CYCLES = 24     # phase 9: the games next to the plain path
+MC_CHECK_CYCLES = 16     # phase 9: the games next to the plain path
 MC_TIME_DECISIONS = 8    # phase 9: timed decisions (64 games each)
 MC_KERNELS = ("actor", "decode", "issue_env", "cycle", "event_jump",
               "evaluate")
@@ -228,7 +260,7 @@ TREE_CHECK = dict(n_playouts=8, max_nodes=16, max_children=8, max_depth=4,
 UCT_CHECK = dict(n_playouts=8, max_nodes=16, n_candidates=8, max_depth=4,
                  playout_len=24)
 TREE_GAME = dict(n_playouts=2, max_depth=2, playout_len=4)
-TREE_GAME_CYCLES = 32    # phase 11: NaiveMCTS vs WorkerRush, 16 games
+TREE_GAME_CYCLES = 16    # phase 11: NaiveMCTS vs WorkerRush, 16 games
 TREE_TIME_GAMES = 64     # phase 11: one decision at the JAX defaults
 # phase 11: kernel vs plain at the defaults' tree shapes (N, C, D) on the
 # 64 timed games, with short playouts so that the plain path stays cheap
@@ -251,7 +283,7 @@ MM_REDUCED = {           # phase 12 (and 4): kernel vs plain, 16 games
     "IDRTMinimaxRandomized": dict(k_moves=4, repeats=4, lookahead=12,
                                   stack_cap=6, node_budget=24),
     "SampledABCD": dict(k_moves=4, playout_len=8)}
-MM_GAME_CYCLES = 16      # phase 12: ABCD (reduced) vs WorkerRush, 16 games
+MM_GAME_CYCLES = 8       # phase 12: ABCD (reduced) vs WorkerRush, 16 games
 # phase 12: kernel vs plain on the 64 timed games at the defaults' stack
 # shapes (ABCD S=5, RTMinimax S=12, IDRTMinimaxRandomized 4096 lanes S=11,
 # SampledABCD 8 x 8 candidates), with short budgets and playouts so that
@@ -274,6 +306,30 @@ MM_KERNELS = {"ABCD": DFS_KERNELS + ("rush",),
               "IDRTMinimaxRandomized": DFS_KERNELS,
               "SampledABCD": ("actor", "decode", "issue_env", "cycle",
                               "event_jump", "evaluate", "rush")}
+
+
+# the partially observable path (K11a-c)
+PO_TICKS = 128           # phase 3: plain PO ticks (1024 envs)
+PO_RECORD_EVERY = 16     # ... whose inputs are kept every 16th tick
+PO_MAIN_TICKS = 256      # phase 13: compared PO ticks
+PO_TIME_TICKS = 200      # phase 13: timed window
+PO_PROFILE_TICKS = 20    # phase 13: profiled window
+# phase 13: launches per PO step (random_bot's actor for both players)
+PO_STEP_LAUNCHES = dict(actor=2, po_state=2, decode=2, issue=2, cycle=1,
+                        epilogue=1, splice_obs=1, obs_po=1)
+POOL_MAPS = ("maps/16x16/basesWorkers16x16.xml",
+             "maps/16x16/TwoBasesBarracks16x16.xml",
+             "maps/8x8/basesWorkers8x8.xml", "maps/NoWhereToRun9x8.xml")
+POOL_TICKS = 64          # phase 13: the PO pool next to the plain path
+PO_RR_BOTS = ("POWorkerRush", "POLightRush", "POHeavyRush", "PORangedRush",
+              "WorkerRush")
+PO_RR_GAMES = 8          # per ordered pair: 20 pairs x 8 = 160 lanes
+# phase 13: kernel next to plain; the plain PO rushes' pool takes ~0.66 s
+# a frame on the card's host, so the check stops at 150 cycles
+PO_RR_CHECK_CYCLES = 150
+PO_RR_CYCLES = 2000      # phase 13: timed
+PO_RR_KERNELS = ("decode", "issue", "po_state", "cycle", "rush",
+                 "event_jump")
 
 
 def smi_line() -> str:
@@ -532,6 +588,46 @@ def minimax_decision(env, MM, name, kw, state, seed, player=0):
     return out[-1][0], [o[2] for o in out], [o[1] for o in out]
 
 
+def random_claims(gen, s, cfg, cells):
+    """Candidates for the units of ``s`` in ``cells`` (bool [B, H, W]):
+    most of them claims (a move, or a produce of a type the unit makes)
+    toward a free neighbour where one is free, some other actions and
+    parameters out of range; ranks a random permutation of the cells per
+    env.  Units next to the same free cell then claim it together."""
+    import torch
+    from microrts_tpu_torch.engine.kernel import pull
+    from microrts_tpu_torch.engine.types import Candidates
+    B, H, W = s.utype.shape
+    T, dev = cfg.num_types, s.utype.device
+
+    def rand(*shape):
+        return torch.rand((B, H, W) + shape, generator=gen, device=dev)
+
+    def ri(lo, hi):
+        return torch.randint(lo, hi, (B, H, W), generator=gen, device=dev,
+                             dtype=torch.int32)
+    free = (s.terrain == 0) & (s.utype == 0)
+    fd = torch.stack([pull(free, d, False) for d in range(4)], -1)
+    pick = torch.where(fd, rand(4), -1.0).argmax(-1).int()
+    param = torch.where(fd.any(-1) & (rand() < 0.9), pick, ri(-1, 5))
+    t = (s.utype.long() - 1).clamp(0, T - 1)
+    makes = torch.tensor(cfg.produces, dtype=torch.bool, device=dev)[t]
+    ptype = torch.where(makes, rand(T), -1.0).argmax(-1).int()
+    mover = torch.tensor(cfg.can_move, dtype=torch.bool, device=dev)[t]
+    at = torch.where(makes.any(-1) & (rand() < 0.6), 4,
+                     torch.where(mover, 1, 0)).int()
+    at = torch.where(rand() < 0.15, ri(-1, 6), at)
+    at = torch.where(cells & (s.utype > 0), at, -1).int()
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    rank = torch.argsort(torch.rand((B, H * W), generator=gen, device=dev),
+                         1).int().reshape(B, H, W)
+    return Candidates(atype=at, aparam=param.int(),
+                      atx=(xs + ri(-3, 4)).int(), aty=(ys + ri(-3, 4)).int(),
+                      aptype=torch.where(rand() < 0.9, ptype, ri(0, T)),
+                      rank=rank)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -543,10 +639,13 @@ def main() -> int:
                                                   random_bot_plain,
                                                   random_opponent)
     from microrts_tpu_torch.config import RUSH_BOTS, make_bot
+    from microrts_tpu_torch.engine import fog
+    from microrts_tpu_torch.engine.kernel import make_engine
     from microrts_tpu_torch.engine.types import (ATTACK, FIELD_DTYPES,
                                                  HARVEST, PRODUCE, RETURN,
                                                  Candidates, State)
     from microrts_tpu_torch.env.gridnet import GridnetEnv
+    from microrts_tpu_torch.env.pool import MapPoolVecEnv
     from microrts_tpu_torch.env.vec import VecGridnetEnv
     from microrts_tpu_torch.models.gridnet_policy import (
         ActionSpace, GridnetPolicy, action_logprob_plain, greedy_action_plain,
@@ -687,6 +786,40 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; {len(rush_records)} recorded "
           f"(the last with bases removed)", flush=True)
 
+    # PO step inputs: the plain PO path from the end of the rush run (units
+    # in contact, so that hidden units' claims meet visible ones), the
+    # conflicts of each kind counted at every issue, the inputs kept every
+    # PO_RECORD_EVERY ticks and where a kind first occurs
+    t0 = time.perf_counter()
+    kpo = GridnetEnv(path, partial_obs=True, device=dev)
+    ppo = GridnetEnv(path, partial_obs=True, device=dev, plain=True)
+    ppbot = random_bot(ppo, BIAS)
+    s = rush_start
+    po_records = []
+    po_seen = {k: 0 for k in peng.ISSUE_CONFLICTS}
+    for tick in range(PO_TICKS):
+        u0, u1 = uniforms()
+        a0, a1 = ppbot(s, 0, u0), ppbot(s, 1, u1)
+        cnt = {}
+        v0 = ppo.po_view(s, 0)
+        c0 = ppo.decode(s, a0, 0, view=v0)
+        s1 = ppo.engine.issue_plain(s, c0, counts=cnt)
+        v1 = ppo.po_view(s1, 1)
+        c1 = ppo.decode(s1, a1, 1, view=v1)
+        s2 = ppo.engine.issue_plain(s1, c1, counts=cnt)
+        if tick % PO_RECORD_EVERY == 0 or any(
+                cnt[k] and not po_seen[k] for k in cnt):
+            po_records.append(dict(tick=tick, s=s, a0=a0, a1=a1, v0=v0,
+                                   c0=c0, s1=s1, v1=v1, c1=c1, cnt=cnt))
+        for k in cnt:
+            po_seen[k] += cnt[k]
+        s, _ = ppo.engine.cycle(s2)
+    po_start = s
+    torch.cuda.synchronize()
+    print(f"    {PO_TICKS} plain PO ticks in {time.perf_counter() - t0:.1f} "
+          f"s; {len(po_records)} recorded {[r['tick'] for r in po_records]}; "
+          f"conflicts at its issues {po_seen}", flush=True)
+
     # the policy: seeded, full width, bf16 activations
     space = ActionSpace(cfg.num_types, 2 * cfg.max_range + 1)
     net = GridnetPolicy(space, 20 + cfg.num_types).init_params(
@@ -695,6 +828,7 @@ def main() -> int:
     # ---- [4] every kernel against its plain version, on every record
     errs = {k.name: 0 for k in KN.KERNELS}
     terminal = 0
+    lane_player = (torch.arange(B, device=dev) % 2).int()
     for r in records:
         for p, st, u, a in ((0, r["s"], r["u0"], r["a0"]),
                             (1, r["s"], r["u1"], r["a1"])):
@@ -821,7 +955,6 @@ def main() -> int:
     # player vector
     type_ids = {n: kenv.utt.get_unit_type(n).ID for n in (
         "Base", "Barracks", "Worker", "Light", "Heavy", "Ranged")}
-    lane_player = (torch.arange(B, device=dev) % 2).int()
     for st in [r["s"] for r in records] + [records[-1]["post"]] \
             + rush_records:
         for name in EVAL_EXACT + EVAL_FLOAT:
@@ -1063,6 +1196,98 @@ def main() -> int:
           f"({TREE_GAMES} games; lanes {mm_cases}, the exhausted draws "
           f"on the trips with the pushes cleared) equal to plain "
           f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    # K11a: issue on both issues of every PO record under the three
+    # policies, and on two-issue random candidate tables (half the units,
+    # then the others on the result) over PO and rush records with the
+    # stockpiles drawn; CANCEL_RANDOM's coins random, CANCEL_ALTERNATING's
+    # counter drawn; issue against issue_env on slice 1's records
+    t1 = time.perf_counter()
+    pcfg = {p: dataclasses.replace(cfg, move_conflict_policy=p)
+            for p in (1, 2, 3)}
+    peng_p = {p: make_engine(c, plain=True) for p, c in pcfg.items()}
+
+    def drawn(hi, shape=()):
+        return torch.randint(0, hi, (B,) + shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def issue_check(label, st, c, policy, counts=None):
+        coins = (torch.rand((B, H, W, 4), generator=gen, device=dev) < 0.5
+                 if policy == 2 else None)
+        if policy == 3:
+            st = st.replace(cancel_ctr=drawn(6))
+        ps = peng_p[policy].issue_plain(st, c, coins, counts)
+        errs["issue"] = max(errs["issue"], expect_equal(
+            label, state_pairs(KN.ISSUE(pcfg[policy], st, c, coins), ps)))
+        return ps
+
+    for r in po_records:
+        for policy in (1, 2, 3):
+            for st, c in ((r["s"], r["c0"]), (r["s1"], r["c1"])):
+                issue_check(f"issue policy {policy} (PO tick {r['tick']})",
+                            st, c, policy)
+    syn = {}
+    syn_inputs = [r["s"] for r in po_records[::3]] + rush_records[::3]
+    for st0 in syn_inputs:
+        for policy in (1, 2, 3):
+            st = st0.replace(resources=drawn(12, (2,)))
+            half = torch.rand((B, H, W), generator=gen, device=dev) < 0.5
+            for cells in (half, ~half):
+                st = issue_check(f"issue policy {policy} (random tables)",
+                                 st, random_claims(gen, st, cfg, cells),
+                                 policy, syn)
+    both = {k: po_seen[k] + syn.get(k, 0) for k in po_seen}
+    if min(both.values()) == 0:
+        raise AssertionError(f"the issue inputs miss a conflict kind: PO "
+                             f"path {po_seen}, random tables {syn}")
+    for r in records:
+        for st, c in ((r["s"], r["c0"]), (r["s1"], r["c1"])):
+            expect_equal("issue vs issue_env (full observation)",
+                         state_pairs(KN.ISSUE(cfg, st, c),
+                                     KN.ISSUE_ENV(cfg, st, c)))
+    # K11b/c: the fog of both players and a per-lane player vector on the
+    # PO, rush and terminal records; decode with a view on the PO records
+    fog_inputs = ([r["s"] for r in po_records] + rush_records
+                  + [records[-1]["post"]])
+    fog_seen = dict(hidden=0, seen=0)
+    for st in fog_inputs:
+        for p in (0, 1, lane_player):
+            kv, kvis = KN.PO_STATE(cfg, st, p)
+            pvis = fog.visibility_plain(st, p, cfg)
+            errs["po_state"] = max(errs["po_state"], expect_equal(
+                "po_state", state_pairs(kv, fog.po_state_plain(st, p, cfg))
+                + [("visibility", kvis, pvis)]))
+            me = p[:, None, None] if isinstance(p, torch.Tensor) else p
+            enemy = (st.utype > 0) & (st.owner >= 0) & (st.owner != me)
+            fog_seen["hidden"] += int((enemy & ~pvis).sum())
+            fog_seen["seen"] += int((enemy & pvis).sum())
+            ko = KN.OBS_PO(cfg, st, (p,))[0]
+            errs["obs_po"] = max(errs["obs_po"], expect_equal("obs_po", [
+                ("obs", ko[0], fog.observation_po_plain(st, p, cfg))]))
+        ko, koh = KN.OBS_PO(cfg, st, (0, 1), onehot=(0, 1))
+        errs["obs_po"] = max(errs["obs_po"], expect_equal(
+            "obs_po (both players, one-hot)", [
+                ("obs", ko, torch.stack([ppo.observation_plain(st, p)
+                                         for p in (0, 1)])),
+                ("onehot", koh, torch.stack([
+                    ppo.observation_onehot_plain(st, p) for p in (0, 1)]))]))
+    if min(fog_seen.values()) == 0:
+        raise AssertionError(f"the fog inputs miss a case: {fog_seen}")
+    for r in po_records:
+        for p, st, a, v, c in ((0, r["s"], r["a0"], r["v0"], r["c0"]),
+                               (1, r["s1"], r["a1"], r["v1"], r["c1"])):
+            kc = KN.DECODE(kenv.cfg, st, a, p, view=v)
+            errs["decode"] = max(errs["decode"], expect_equal(
+                "decode (view)", [(f, getattr(kc, f), getattr(c, f))
+                                  for f in Candidates.FIELDS]))
+    torch.cuda.synchronize()
+    print(f"    issue under 3 policies on {len(po_records)} PO records x 2 "
+          f"issues and two-issue random tables on {len(syn_inputs)} PO and "
+          f"rush records (conflicts: PO path {po_seen}, random tables "
+          f"{syn}), issue = issue_env on {len(records)} full-observation "
+          f"records x 2, po_state and obs_po (one-hot too) on "
+          f"{len(fog_inputs)} records x 3 player views (enemy units "
+          f"{fog_seen}), decode with a view on {len(po_records)} x 2, equal "
+          f"to plain ({time.perf_counter() - t1:.1f} s)", flush=True)
     print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
           f"(max |diff| {errs})", flush=True)
 
@@ -1296,6 +1521,44 @@ def main() -> int:
         lambda: MM.minimax_step(kenv, next(kst_pool), mtrip, mmaxp),
         lambda: MM.minimax_step(penv, next(pst_pool), mtrip, mmaxp),
         mm_bytes)
+    # issue (player 1's issue of the PO record with the most conflicts):
+    # the board and assignment planes, the scalars and the candidates in;
+    # busy, the assignment planes, order_ctr and cancel_ctr out
+    ri = max(po_records, key=lambda r: sum(r["cnt"].values()))
+    is1, ic1 = ri["s1"], ri["c1"]
+    assign = ("busy", "atype", "aparam", "atx", "aty", "aptype", "aticks",
+              "aorder", "atime")
+    iout = KN.ISSUE(cfg, is1, ic1)
+    timing["issue"] = (
+        lambda: KN.ISSUE(cfg, is1, ic1),
+        lambda: peng.issue_plain(is1, ic1),
+        nbytes(*[getattr(is1, f) for f in ("utype", "owner", "terrain",
+                                           "carried", "time", "resources",
+                                           "order_ctr", "cancel_ctr")
+                 + assign],
+               *[getattr(ic1, f) for f in Candidates.FIELDS],
+               *[getattr(iout, f) for f in assign + ("order_ctr",
+                                                     "cancel_ctr")]))
+    # po_state (player 0, that record's state): the 14 unit planes in; the
+    # view's 14 planes and the visibility out
+    po_s = ri["s"]
+    unit_planes = tuple(fog.VIEW_FILL) + ("busy",)
+    kview, kvis = KN.PO_STATE(cfg, po_s, 0)
+    timing["po_state"] = (
+        lambda: KN.PO_STATE(cfg, po_s, 0),
+        lambda: fog.po_state_plain(po_s, 0, cfg),
+        nbytes(*[getattr(po_s, f) for f in unit_planes],
+               *[getattr(kview, f) for f in unit_planes], kvis))
+    # obs_po (both players, as the PO step writes them): utype, owner, hp,
+    # carried, busy, atype, terrain in; 2 x 8 int32 planes out
+    kobs_po = KN.OBS_PO(cfg, po_s, (0, 1))[0]
+    timing["obs_po"] = (
+        lambda: KN.OBS_PO(cfg, po_s, (0, 1)),
+        lambda: [fog.observation_po_plain(po_s, p, cfg) for p in (0, 1)],
+        nbytes(*[getattr(po_s, f) for f in ("utype", "owner", "hp",
+                                            "carried", "busy", "atype",
+                                            "terrain")], kobs_po))
+    del kview, kvis, kobs_po, iout
     assert A == lg.shape[-1]
     times = {}
     print("    device time per call (queued; host-paced in brackets):")
@@ -1342,7 +1605,8 @@ def main() -> int:
                 splice_obs=1, policy_sample=0, policy_logprob_fwd=0,
                 policy_logprob_bwd=0, rush=0, event_jump=0, evaluate=0,
                 arm_sample=0, arms_to_action=0, mcts_descend=0,
-                mcts_backprop=0, enum_next=0, minimax_step=0)
+                mcts_backprop=0, enum_next=0, minimax_step=0, issue=0,
+                po_state=0, obs_po=0)
     if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
@@ -1724,7 +1988,7 @@ def main() -> int:
           f"winners, table; {lane_ticks(ks)} game ticks); launches "
           f"{rr_check_counts} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
-    # the round robin's 150 cycles end no game: finished games (winners,
+    # the round robin's 100 cycles end no game: finished games (winners,
     # frozen lanes) are held in a pairing that ends early, capped a little
     # after WorkerRush's first wins
     t1 = time.perf_counter()
@@ -1871,7 +2135,7 @@ def main() -> int:
 
     # ---- [11] tree search: NaiveMCTS and UCT decisions of 16 recorded
     # rush games at a reduced budget and 16 NaiveMCTS-vs-WorkerRush games
-    # to 32 cycles (play_matches), kernel vs plain with the same draws;
+    # to 16 cycles (play_matches), kernel vs plain with the same draws;
     # then, on 64 games, a decision of each at the defaults' tree shapes
     # with short playouts, kernel vs plain, and one at the JAX defaults,
     # timed
@@ -1971,7 +2235,7 @@ def main() -> int:
 
     # ---- [12] minimax: one decision of each of the six bots on the 16
     # recorded rush games at reduced budgets, kernel vs plain with the
-    # same draws; 16 ABCD-vs-WorkerRush games to 16 cycles; then one
+    # same draws; 16 ABCD-vs-WorkerRush games to 8 cycles; then one
     # decision of the 64 timed games at the JAX defaults, timed
     t0 = time.perf_counter()
     mm_phase = {}
@@ -2112,7 +2376,171 @@ def main() -> int:
         mm_counts[name] = mm_phase[name]
     print(f"    [12] took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- [13] results
+    # ---- [13] the PO main path through the kernels, next to the plain
+    # path: from the end of [3]'s PO run with random step counts (resets)
+    t0 = time.perf_counter()
+    kvec_po = VecGridnetEnv(kpo, B, max_steps=MAX_STEPS)
+    pvec_po = VecGridnetEnv(ppo, B, max_steps=MAX_STEPS)
+    kpbot = random_bot(kpo, BIAS)
+    gen.manual_seed(13)
+    steps_po = torch.randint(0, MAX_STEPS, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    ks, ksteps = po_start.clone(), steps_po.clone()
+    ps, psteps = po_start.clone(), steps_po.clone()
+    resets = hidden = 0
+    KN.reset_counts()
+    for t in range(PO_MAIN_TICKS):
+        u0, u1 = uniforms()
+        ka0, ka1 = kpbot(ks, 0, u0), kpbot(ks, 1, u1)
+        ks, ksteps, kobs, krew, kdn, krm, koh = kvec_po.step(
+            ks, ksteps, ka0, ka1, onehot=(0, 1))
+        pa0, pa1 = ppbot(ps, 0, u0), ppbot(ps, 1, u1)
+        ps, psteps, pobs, prew, pdn, prm, poh = pvec_po.step(
+            ps, psteps, pa0, pa1, onehot=(0, 1))
+        expect_equal(f"PO main path tick {t}", state_pairs(ks, ps) + [
+            ("actions p0", ka0, pa0), ("actions p1", ka1, pa1),
+            ("steps", ksteps, psteps), ("obs", kobs, pobs),
+            ("onehot", koh, poh), ("rewards", krew, prew),
+            ("dones", kdn, pdn), ("reset_mask", krm, prm)])
+        resets += int(krm.sum())
+        hidden += int(((kobs[0, :, 3] == 0) & (ks.owner == 1)).sum())
+    po_counts = KN.counts()
+    torch.cuda.synchronize()
+    want = {n: PO_STEP_LAUNCHES.get(n, 0) * PO_MAIN_TICKS for n in po_counts}
+    if po_counts != want:
+        raise AssertionError(f"PO launch counts {po_counts}, want per step "
+                             f"{PO_STEP_LAUNCHES} and no other")
+    if kobs.shape != (2, B, 8, H, W) or resets == 0 or hidden == 0:
+        raise AssertionError(f"PO main path: obs {tuple(kobs.shape)}, "
+                             f"{resets} resets, {hidden} hidden enemies")
+    print(f"[13] PO main path: {PO_MAIN_TICKS} ticks identical to the plain "
+          f"path (state, 8-plane obs, one-hot of both views, rewards, "
+          f"dones), {resets} env resets, {hidden} enemy units hidden from "
+          f"player 0; launches per step "
+          f"{ {n: c // PO_MAIN_TICKS for n, c in po_counts.items() if c} } "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def run_po(vec, bot, n):
+        st, sp = po_start.clone(), steps_po.clone()
+        for _ in range(3):
+            u0, u1 = uniforms()
+            st, sp, *_ = vec.step(st, sp, bot(st, 0, u0), bot(st, 1, u1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            u0, u1 = uniforms()
+            st, sp, *_ = vec.step(st, sp, bot(st, 0, u0), bot(st, 1, u1))
+        torch.cuda.synchronize()
+        return B * n / (time.perf_counter() - t1), st, sp
+
+    po_sps, st, sp = run_po(kvec_po, kpbot, PO_TIME_TICKS)
+    po_sps_plain = run_po(pvec_po, ppbot, PO_TIME_TICKS // 8)[0]
+    sps_now = run(kvec, kbot, TIME_TICKS)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(PO_PROFILE_TICKS):
+            u0, u1 = uniforms()
+            st, sp, *_ = kvec_po.step(st, sp, kpbot(st, 0, u0),
+                                      kpbot(st, 1, u1))
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t1) * 1e6
+    busy, kern = device_busy(prof)
+    po_top = {a.key[:24]: round(a.self_device_time_total / PO_PROFILE_TICKS,
+                                1) for a in kern[:8]}
+    print(f"    PO main path env-steps/s/card: kernels {po_sps:.1f}, plain "
+          f"{po_sps_plain:.1f}; slice 1's step in the same run "
+          f"{sps_now:.1f} ({po_sps / sps_now:.3f}x; B={B}, 16x16, "
+          f"{PO_TIME_TICKS} steps); device busy "
+          f"{100 * busy / window:.1f}% of a profiled {PO_PROFILE_TICKS}-step "
+          f"window ({window / PO_PROFILE_TICKS:.0f} us a step; device us a "
+          f"step by kernel {po_top}); {kind}, {smi}", flush=True)
+    del prof, kern
+
+    # the PO map pool: a padded 8x8 and 9x8 map in a 16x16 pool, each env
+    # reset to its own map
+    t1 = time.perf_counter()
+    pool_paths = [asset_path(m) for m in POOL_MAPS]
+    kpool, ppool = (MapPoolVecEnv(pool_paths, B, max_steps=MAX_STEPS,
+                                  partial_obs=True, device=dev, plain=plain)
+                    for plain in (False, True))
+    kpb, ppb = random_bot(kpool.env, BIAS), random_bot(ppool.env, BIAS)
+    ks, _ = kpool.reset()
+    ps, _ = ppool.reset()
+    ksteps, psteps = steps_po.clone(), steps_po.clone()
+    pool_resets = 0
+    for t in range(POOL_TICKS):
+        u0, u1 = uniforms()
+        kout = kpool.step(ks, ksteps, kpb(ks, 0, u0), kpb(ks, 1, u1))
+        pout = ppool.step(ps, psteps, ppb(ps, 0, u0), ppb(ps, 1, u1))
+        expect_equal(f"PO pool tick {t}", state_pairs(kout[0], pout[0]) + [
+            (n, a, b) for n, a, b in zip(
+                ("steps", "obs", "rewards", "dones", "reset_mask"),
+                kout[1:], pout[1:])])
+        (ks, ksteps), (ps, psteps) = kout[:2], pout[:2]
+        rows = kout[5].nonzero().flatten()
+        pool_resets += rows.numel()
+        expect_equal("PO pool reset to the env's own map", [
+            (f, getattr(ks, f).index_select(0, rows),
+             getattr(kpool.init, f).index_select(0, rows))
+            for f in FIELD_DTYPES])
+    if pool_resets == 0 or not bool((ks.terrain[2][:, 8:] == 1).all()):
+        raise AssertionError(f"PO pool: {pool_resets} resets, or the "
+                             f"8x8 map's env is not walled at x >= 8")
+    torch.cuda.synchronize()
+    print(f"    PO map pool ({len(POOL_MAPS)} maps padded to "
+          f"{kpool.h}x{kpool.w}): {POOL_TICKS} ticks identical to the plain "
+          f"path, {pool_resets} resets to each env's own map "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    del kpool, ppool
+
+    # the PO rushes in a round robin on the PO env, kernel next to plain,
+    # then timed
+    t1 = time.perf_counter()
+    TN._games_fn = recording_games_fn
+
+    def po_rr(env, cycles):
+        table = TN.round_robin(env, {n: make_bot(n, env) for n in PO_RR_BOTS},
+                               PO_RR_GAMES, cycles, seed=7)
+        torch.cuda.synchronize()
+        return table, *games.pop()
+
+    KN.reset_counts()
+    ktab, kw, ks, kframes = po_rr(kpo, PO_RR_CHECK_CYCLES)
+    po_rr_check = KN.counts()
+    ptab, pw, ps, pframes = po_rr(ppo, PO_RR_CHECK_CYCLES)
+    expect_equal("PO round robin", state_pairs(ks, ps)
+                 + [("winners", kw, pw)])
+    same_tables("PO round robin", ktab, ptab)
+    if (any(po_rr_check[n] == 0 for n in PO_RR_KERNELS)
+            or any(po_rr_check[n] for n in po_rr_check
+                   if n not in PO_RR_KERNELS)):
+        raise AssertionError(f"the PO round robin launched {po_rr_check}; "
+                             f"want each of {PO_RR_KERNELS} and no other")
+    print(f"    PO round robin: {len(kw)} lanes x {PO_RR_CHECK_CYCLES} "
+          f"cycles ({kframes} frames) identical to the plain path (states, "
+          f"winners {torch.bincount(kw + 1, minlength=3).tolist()} "
+          f"draw/p0/p1, table); launches {po_rr_check} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    KN.reset_counts()
+    t1 = time.perf_counter()
+    po_table, pow_, pos_, poframes = po_rr(kpo, PO_RR_CYCLES)
+    po_rr_sec = time.perf_counter() - t1
+    po_rr_counts = KN.counts()
+    TN._games_fn = games_fn
+    po_rr_ticks = lane_ticks(pos_)
+    print(po_table.table())
+    print(f"    PO round robin game-ticks/s/card: "
+          f"{po_rr_ticks / po_rr_sec:.1f} ({po_rr_ticks} lane ticks in "
+          f"{po_rr_sec:.3f} s, {poframes} frames, max_cycles "
+          f"{PO_RR_CYCLES}); launches {po_rr_counts}; {kind}, {smi}",
+          flush=True)
+    if po_table.wins.sum() == 0:
+        raise AssertionError("no game of the PO round robin was won")
+    print(f"    [13] took {time.perf_counter() - t0:.1f} s", flush=True)
+    del ks, ps, pos_
+
+    # ---- [14] results
     kernels = []
     tree_k = ("arm_sample", "arms_to_action", "mcts_descend",
               "mcts_backprop")
@@ -2122,6 +2550,8 @@ def main() -> int:
         launches = (tree_counts["NaiveMCTS"][k.name] if k.name in tree_k
                     else mm_counts["ABCD"][k.name]
                     if k.name in ("enum_next", "minimax_step")
+                    else po_counts[k.name]
+                    if k.name in ("issue", "po_state", "obs_po")
                     else mc_counts[k.name] if new else upd_counts[k.name])
         by_phase = {"5": counts[k.name], "6": roll_counts[k.name],
                     "7": upd_counts[k.name], "8": rr_counts[k.name],
@@ -2129,6 +2559,8 @@ def main() -> int:
                     "11 NaiveMCTS": tree_counts["NaiveMCTS"][k.name],
                     "11 UCT": tree_counts["UCT"][k.name]}
         by_phase.update({f"12 {n}": c[k.name] for n, c in mm_counts.items()})
+        by_phase.update({"13 PO step": po_counts[k.name],
+                         "13 PO round robin": po_rr_counts[k.name]})
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
             source=k.source, replaces=k.replaces, launches=launches,

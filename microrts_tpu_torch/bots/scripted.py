@@ -1,5 +1,6 @@
 """Scripted bots on batched planes (port of ``microrts_tpu.bots.scripted``:
-``passive_bot``, ``random_bot`` and the ``rush_bot`` family).
+``passive_bot``, ``random_bot``, the ``rush_bot`` family and its
+partially observable ``po_*`` rushes).
 
 A bot is ``bot(state, player, u) -> int32 [B, H, W, 7]`` gridnet actions.
 Its randomness comes in as ``u``, float32 uniforms in [0, 1) of shape
@@ -9,9 +10,8 @@ deterministic and take no uniforms.  An ``Opponent`` pairs a bot with
 ``draw(gen, B)``, which makes the noise the bot reads (the trainer, the
 tournaments and the search bots draw through it).
 
-Not ported yet: ``random_biased_single_unit_bot``, the partially
-observable ``po_*`` rushes (they need the fog of war, ROADMAP queue 1
-item 9) and ``distribution_bot``.
+Not ported yet: ``random_biased_single_unit_bot`` and
+``distribution_bot``.
 """
 
 from __future__ import annotations
@@ -497,3 +497,30 @@ def crush_v1(env):                # CRush_V1.java:383-415
 def crush_v2(env):                # CRush_V2.java:154
     return rush_bot(env, RushSpec("Ranged", n_harvesters=2,
                                   rebuild_base=True))
+
+
+def po_wrap(env: GridnetEnv, bot):
+    """Partial-observability wrapper (scripted.py:481): the bot sees only
+    its fog-of-war view (ai/abstraction/partialobservability/PO*Rush.java:
+    the same policy on the PartiallyObservableGameState).  On CUDA tensors
+    the view is the ``po_state`` kernel."""
+    def wrapped(state: State, player, u=None) -> torch.Tensor:
+        return bot(env.po_view(state, player), player, u)
+
+    return wrapped
+
+
+def po_worker_rush(env):   # POWorkerRush.java
+    return po_wrap(env, worker_rush(env))
+
+
+def po_light_rush(env):    # POLightRush.java
+    return po_wrap(env, light_rush(env))
+
+
+def po_heavy_rush(env):    # POHeavyRush.java
+    return po_wrap(env, heavy_rush(env))
+
+
+def po_ranged_rush(env):   # PORangedRush.java
+    return po_wrap(env, ranged_rush(env))

@@ -73,7 +73,11 @@ def _issue_player(env: GridnetEnv, s: State, action, player) -> State:
     """Issue one player's gridnet action (``player`` an int or int32
     ``[B]``): decode against the in-flight claims, then ``issue_env``.
     On decode-vetted candidates ``issue_env`` is the full ``issue``
-    (engine/kernel.py:456-476 of the JAX package)."""
+    (engine/kernel.py:456-476 of the JAX package), which JAX's tree search
+    calls here: tests/test_torch_issue.py
+    ``test_issue_env_is_issue_on_decode_vetted_full_obs`` holds the two
+    equal on the plain path and ``chip_smoke.py`` [4] the two kernels on
+    the card."""
     return env.engine.issue_env(s, env.decode(s, action, player))
 
 

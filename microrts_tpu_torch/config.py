@@ -75,6 +75,10 @@ _RUSH = dict(
     SimpleEconomyRush="simple_economy_rush", CRush_V1="crush_v1",
     CRush_V2="crush_v2")
 RUSH_BOTS = tuple(_RUSH)
+# the partially observable rushes: name -> bots.scripted constructor
+_PO_RUSH = dict(POWorkerRush="po_worker_rush", POLightRush="po_light_rush",
+                POHeavyRush="po_heavy_rush", PORangedRush="po_ranged_rush")
+PO_BOTS = tuple(_PO_RUSH)
 SEARCH_BOTS = ("MonteCarlo",)
 # the tree-search bots the port has: name -> (bots.treesearch constructor,
 # its arguments), as the JAX package's registry builds them
@@ -99,16 +103,12 @@ _MINIMAX = dict(
     IDRTMinimaxRandomized="idrt_minimax_randomized_bot")
 MINIMAX_BOTS = tuple(_MINIMAX)
 PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI") + RUSH_BOTS \
-    + SEARCH_BOTS + TREE_BOTS + MINIMAX_BOTS
+    + PO_BOTS + SEARCH_BOTS + TREE_BOTS + MINIMAX_BOTS
 
 # names the JAX package has and the port not yet: the ROADMAP.md queue 1
 # item that ports them
 _NOT_PORTED = dict(
     RandomBiasedSingleUnitAI="item 4 (bots/scripted.py)",
-    POWorkerRush="item 9 (the fog of war)",
-    POLightRush="item 9 (the fog of war)",
-    POHeavyRush="item 9 (the fog of war)",
-    PORangedRush="item 9 (the fog of war)",
     UnitActionProbabilityDistributionAI="item 11 (learned models)",
     InformedNaiveMCTS="item 11 (learned models)",
     **{n: "item 10 (search bots)" for n in (
@@ -131,6 +131,8 @@ def make_bot(name: str, env):
         return S.random_opponent(env, 5.0)
     if name in _RUSH:
         return S.Opponent(getattr(S, _RUSH[name])(env))
+    if name in _PO_RUSH:
+        return S.Opponent(getattr(S, _PO_RUSH[name])(env))
     if name == "MonteCarlo":
         from .bots.search import monte_carlo_bot
         return monte_carlo_bot(env)

@@ -3,14 +3,19 @@
 A port of ``microrts_tpu.engine.kernel`` (the Java hot loop re-designed as
 plane ops, see that module's docstring for the exactness model).  Every
 function here is the plain PyTorch version, batched over the leading axis
-of ``[B, H, W]`` planes; ``issue_env`` and ``cycle`` dispatch by device:
-CPU tensors (or an engine built with ``plain=True``) take the plain
-version, CUDA tensors launch the hand-written kernels of
+of ``[B, H, W]`` planes; ``issue``, ``issue_env`` and ``cycle`` dispatch
+by device: CPU tensors (or an engine built with ``plain=True``) take the
+plain version, CUDA tensors launch the hand-written kernels of
 ``microrts_tpu_torch.kernels``.
 
-Only the full-observation fast path is ported: ``issue_env`` (issueSafe
-for decode-vetted candidates).  The full ``issue`` with its CANCEL chains
-and UTT v3's random damage are not, and raise.
+``issue`` is the full issueSafe: legality, cross-cycle position and
+resource cancels against prior-tick assignments, and the same-tick
+CANCEL_BOTH / CANCEL_RANDOM / CANCEL_ALTERNATING chains.  CANCEL_RANDOM's
+coins are an input (bool ``[B, H, W, 4]``, indexed by the sorted claimant
+slot, as the JAX package draws them from ``fold_in(key, order_ctr)``).
+``issue_env`` is its fast path for candidates that came through the env
+decode under full observation.  UTT v3's random damage is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -64,6 +69,26 @@ def sum2(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=(-2, -1), dtype=I32)
 
 
+def stack_b(planes) -> torch.Tensor:
+    """Stack bool planes along a new last axis (read back with
+    ``select_dir``)."""
+    return torch.stack(list(planes), -1)
+
+
+def sort4(keys: torch.Tensor, *payloads: torch.Tensor):
+    """Sort 4 elements along the last axis by ``keys`` with the JAX
+    package's 5-comparator network (kernel.py:125): a pair swaps only on
+    a strict ``>``, so equal keys keep that network's order.  Returns
+    (keys_sorted, *payloads_sorted)."""
+    cols = [[a[..., k] for k in range(4)] for a in (keys,) + payloads]
+    for i, j in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
+        swap = cols[0][i] > cols[0][j]
+        for c in cols:
+            c[i], c[j] = (torch.where(swap, c[j], c[i]),
+                          torch.where(swap, c[i], c[j]))
+    return tuple(torch.stack(c, -1) for c in cols)
+
+
 def as_player(player, device=None):
     """``player`` as a value that compares against ``[B, H, W]`` planes:
     an int stays an int, a tensor of per-env players (int32 ``[B]``)
@@ -91,8 +116,9 @@ def iota(h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
 class Engine:
     """The engine's functions closed over one ``EngineConfig``.
 
-    ``plain=True`` makes ``issue_env`` and ``cycle`` run their plain
-    PyTorch versions on any device (the kernels' oracle on the card)."""
+    ``plain=True`` makes ``issue``, ``issue_env`` and ``cycle`` run their
+    plain PyTorch versions on any device (the kernels' oracle on the
+    card)."""
 
     def __init__(self, cfg: EngineConfig, plain: bool = False):
         self.cfg = cfg
@@ -246,6 +272,178 @@ class Engine:
                           (NONE, cand.aparam.to(I32))):
             out = torch.where(at == code, val, out)
         return out
+
+    def issue(self, state: State, cand: Candidates,
+              coins: Optional[torch.Tensor] = None) -> State:
+        """issueSafe (kernel.py:291-454): illegal actions become NONE(ETA
+        of the attempt); a claim whose target a prior-tick MOVE/PRODUCE
+        reserves, or a produce whose cost plus the player's largest
+        prior-tick produce cost exceeds the stockpile, becomes NONE(-1);
+        each cell's <= 4 claimants (new claims and surviving same-tick
+        ones, in issue order) run the move-conflict chain of the UTT's
+        policy.  ``coins`` (bool ``[B, H, W, 4]``, by sorted claimant slot)
+        decides CANCEL_RANDOM's conflicts; that policy raises without
+        them.  Returns a new State that shares the unchanged board
+        planes."""
+        if self._use_kernel(state.utype):
+            return KN.ISSUE(self.cfg, state, cand, coins)
+        return self.issue_plain(state, cand, coins)
+
+    # the conflicts ``issue_plain`` counts: cross-cycle position and
+    # resource cancels, and the chains' cancels of a new claim or of a
+    # same-tick claim issued earlier (rewritten in place)
+    ISSUE_CONFLICTS = ("xc_position", "xc_resource", "cancel_new",
+                       "cancel_old")
+
+    def issue_plain(self, state: State, cand: Candidates,
+                    coins: Optional[torch.Tensor] = None,
+                    counts: Optional[Dict[str, int]] = None) -> State:
+        """``issue``'s plain version.  ``counts`` adds the cells of each
+        kind in ``ISSUE_CONFLICTS``."""
+        policy = self.cfg.move_conflict_policy
+        if policy == 2 and coins is None:
+            raise ValueError("issue: CANCEL_RANDOM needs coins")
+        H, W, T = self.H, self.W, self.T
+        t, exists = self._ctx(state)
+        tp = self._tprop
+        owner = state.owner.to(I32)
+        sparam = state.aparam.to(I32)
+        ignore = ~exists | state.busy | (cand.atype < 0) | (owner < 0)
+        legal = self.validate(state, cand) & ~ignore
+        eta_att = self.eta_of(state, cand)
+        a_type = torch.where(legal, cand.atype, NONE)
+        a_param = torch.where(legal, cand.aparam, eta_att)
+
+        # cross-cycle conflicts against assignments of earlier ticks: only
+        # the new action cancels, as NONE(-1) (GameState.java:298-317)
+        claim = ((a_type == MOVE) | (a_type == PRODUCE)) & ~ignore
+        claiming = state.busy & ((state.atype == MOVE)
+                                 | (state.atype == PRODUCE))
+        prior = state.atime < state.time[:, None, None]
+        inflight = claiming & prior
+        resv = torch.zeros_like(exists)
+        for d in range(4):
+            resv = resv | push(inflight & (sparam == d), d, False)
+        tgt_resv = select_dir(stack_b(pull(resv, d, False) for d in range(4)),
+                              cand.aparam)
+        if_pcost = torch.where(
+            state.busy & prior & (state.atype == PRODUCE),
+            tp("cost", state.aptype.long().clamp(0, T - 1)), 0)
+        max_if = [torch.where(owner == p, if_pcost, 0).amax((1, 2))
+                  for p in (0, 1)]
+        my_bal = torch.where(owner == 1, state.resources[:, 1, None, None],
+                             state.resources[:, 0, None, None])
+        my_max_if = torch.where(owner == 1, max_if[1][:, None, None],
+                                max_if[0][:, None, None])
+        new_cost = tp("cost", cand.aptype.long().clamp(0, T - 1))
+        xc_pos = claim & tgt_resv
+        res_xc = ((a_type == PRODUCE) & ~ignore
+                  & (new_cost + my_max_if > my_bal))
+        xc = xc_pos | res_xc
+        a_type = torch.where(xc, NONE, a_type)
+        a_param = torch.where(xc, -1, a_param)
+        eta2 = torch.where(xc, -1, eta_att)
+        claim = claim & ~xc
+
+        # same-tick chains per target cell over <= 4 claimants (one per
+        # neighbour: a new claim or a surviving same-tick one), keyed by
+        # issue order
+        st_exist = claiming & ~prior
+        new_key = state.order_ctr[:, None, None] + cand.rank
+        rk, et = [], []
+        for d in range(4):
+            n_d = claim & (cand.aparam == d)
+            e_d = st_exist & (sparam == d)
+            c_d = push(n_d | e_d, d, False)
+            key_src = torch.where(n_d, new_key,
+                                  torch.where(e_d, state.aorder, INF))
+            eta_src = torch.where(n_d, eta2, torch.where(
+                e_d, state.aticks.to(I32), 0))
+            rk.append(torch.where(c_d, push(key_src, d), INF))
+            et.append(torch.where(c_d, push(eta_src, d), 0))
+        rk, et = torch.stack(rk, -1), torch.stack(et, -1)
+        srcd = torch.arange(4, dtype=I32, device=rk.device).expand(rk.shape)
+        rk_s, et_s, d_s = sort4(rk, et, srcd)
+        zero = torch.zeros_like(rk_s[..., 0])
+        live = zero - 1
+        cancelled = [torch.zeros_like(exists)] * 4
+        ndur = [zero] * 4
+        nconf = zero
+        for k in range(4):
+            valid_k = rk_s[..., k] < INF
+            conflict = valid_k & (live >= 0)
+            et_live = zero
+            for j in range(4):
+                et_live = torch.where(live == j, et_s[..., j], et_live)
+            dur = torch.minimum(et_live, et_s[..., k])
+            if policy == 2:      # CANCEL_RANDOM
+                c_new = conflict & coins[..., k]
+                c_old = conflict & ~coins[..., k]
+            elif policy == 3:    # CANCEL_ALTERNATING
+                parity = torch.remainder(
+                    state.cancel_ctr[:, None, None] + nconf, 2)
+                c_new = conflict & (parity == 0)
+                c_old = conflict & (parity == 1)
+            else:                # CANCEL_BOTH
+                c_new = c_old = conflict
+            for j in range(4):
+                hit_old = c_old & (live == j)
+                cancelled[j] = cancelled[j] | hit_old
+                ndur[j] = torch.where(hit_old, dur, ndur[j])
+            cancelled[k] = cancelled[k] | c_new
+            ndur[k] = torch.where(c_new, dur, ndur[k])
+            live = torch.where(
+                valid_k & ~conflict, k, torch.where(
+                    c_old & ~c_new, k, torch.where(
+                        c_new & ~c_old, live,
+                        torch.where(conflict, -1, live))))
+            nconf = nconf + conflict.to(I32)
+        # sorted slots back to direction-of-origin planes
+        cancel_d, ndur_d = [], []
+        for d in range(4):
+            acc = torch.zeros_like(exists)
+            nd = torch.full_like(zero, -INF)
+            for k in range(4):
+                sel = (d_s[..., k] == d) & cancelled[k]
+                acc = acc | sel
+                nd = torch.where(sel, ndur[k], nd)
+            cancel_d.append(acc)
+            ndur_d.append(nd)
+        cancel_at = stack_b(pull(cancel_d[d], d, False) for d in range(4))
+        ndur_at = torch.stack([pull(ndur_d[d], d, -INF) for d in range(4)],
+                              -1)
+        cancel_new = select_dir(cancel_at, cand.aparam) & claim
+        ndur_new = select_dir(ndur_at, cand.aparam)
+        a_type = torch.where(cancel_new, NONE, a_type)
+        a_param = torch.where(cancel_new, ndur_new, a_param)
+        eta3 = torch.where(cancel_new, ndur_new, eta2)
+        # a same-tick claim beaten in a chain is rewritten in place to
+        # NONE(min) (GameState.java:291-293)
+        cancel_old = select_dir(cancel_at, sparam) & st_exist
+        ndur_old = select_dir(ndur_at, sparam)
+        if counts is not None:
+            for name, m in zip(self.ISSUE_CONFLICTS,
+                               (xc_pos, res_xc, cancel_new, cancel_old)):
+                counts[name] = counts.get(name, 0) + int(m.sum())
+
+        put = ~ignore
+        return state.replace(
+            busy=state.busy | put,
+            atype=torch.where(put, a_type, torch.where(
+                cancel_old, NONE, state.atype.to(I32))),
+            aparam=torch.where(put, a_param, torch.where(
+                cancel_old, ndur_old, sparam)),
+            atx=torch.where(put, cand.atx, state.atx.to(I32)),
+            aty=torch.where(put, cand.aty, state.aty.to(I32)),
+            aptype=torch.where(put, cand.aptype, state.aptype.to(I32)),
+            aticks=torch.where(put, eta3, torch.where(
+                cancel_old, ndur_old, state.aticks.to(I32))),
+            aorder=torch.where(put, new_key, state.aorder),
+            atime=torch.where(put, state.time[:, None, None], state.atime),
+            order_ctr=state.order_ctr + 2 * H * W,
+            cancel_ctr=state.cancel_ctr + (sum2(nconf) if policy == 3
+                                           else 0),
+        ).canon()
 
     def issue_env(self, state: State, cand: Candidates) -> State:
         """issueSafe for decode-vetted candidates (kernel.py:456-499):

@@ -8,8 +8,9 @@ are ``[B]``.  Planes keep the narrow storage types of ``FIELD_DTYPES``
 every function that returns a ``State`` stores back with ``canon()``.
 
 The JAX ``State.key`` field has no counterpart: randomness enters the port
-as tensors of uniforms made by the caller.  On this path only UTT v3's
-damage draw and CANCEL_RANDOM read the key, and neither is ported yet.
+as tensors made by the caller.  Of the engine, CANCEL_RANDOM's coins are
+such an input of ``Engine.issue`` (bool ``[B, H, W, 4]``, drawn in JAX
+from ``fold_in(key, order_ctr)``); UTT v3's damage draw is not ported yet.
 """
 
 from __future__ import annotations

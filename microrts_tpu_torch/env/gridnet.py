@@ -6,11 +6,17 @@ tensors: states are ``[B, H, W]`` planes and gridnet actions are int32
 ``[B, H, W, 7]``.  ``decode``, ``masks``, the step's rewards, ``dones``,
 ``observation`` and ``observation_onehot`` dispatch by device like the
 engine: CPU tensors (or ``plain=True``) take the plain version, CUDA
-tensors launch the ``decode``, ``actor``, ``epilogue`` and ``splice_obs``
-kernels.
+tensors launch the ``decode``, ``actor``, ``epilogue``, ``splice_obs``
+and, under partial observability, ``po_state`` and ``obs_po`` kernels.
 
-Not ported yet: partial observability, ``step_vs`` and the
-``closertoenemy*`` rewards (they raise).
+``partial_obs=True`` is the JAX package's PO branch (gridnet.py:357-378):
+each player decodes with the in-flight claims of its fog-of-war view,
+both issues are the full ``issue`` (hidden enemy reservations cancel at
+issue), and observations are the 8 PO planes.  As in the JAX package, the
+PO step ignores ``frame_skip`` and ``masks`` read the full state;
+``step_vs`` has no PO branch.
+
+Not ported yet: the ``closertoenemy*`` rewards (they raise).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from .. import kernels as KN
+from ..engine import fog
 from ..engine.kernel import as_player, balance, iota, make_engine
 from ..engine.pgs import PhysicalGameState
 from ..engine.types import (ATTACK, HARVEST, INF, MOVE, NONE, PRODUCE, RETURN,
@@ -61,16 +68,18 @@ class GridnetEnv:
     def __init__(self, map_path: str, utt: Optional[UnitTypeTable] = None,
                  reward_fns: Sequence[str] = PORTED_REWARDS,
                  max_produce_scan: int = 16, partial_obs: bool = False,
-                 frame_skip: int = 1, device="cuda", plain: bool = False):
-        if partial_obs:
-            raise NotImplementedError("partial_obs is not ported yet")
+                 frame_skip: int = 1, device="cuda", plain: bool = False,
+                 pgs: Optional[PhysicalGameState] = None):
+        """``pgs`` (a loaded map) stands in for ``map_path``'s file."""
         for name in reward_fns:
             if name not in PORTED_REWARDS:
                 raise NotImplementedError(f"reward {name!r} is not ported yet")
         self.device = resolve_device(device)
+        self.partial_obs = partial_obs
         self.frame_skip = frame_skip
         self.utt = utt if utt is not None else UnitTypeTable(2)
-        self.pgs0 = PhysicalGameState.load(map_path, self.utt)
+        self.pgs0 = (pgs if pgs is not None
+                     else PhysicalGameState.load(map_path, self.utt))
         self.h, self.w = self.pgs0.height, self.pgs0.width
         ecfg = EngineConfig.from_utt(self.utt, self.h, self.w)
         self.engine = make_engine(ecfg, plain)
@@ -101,20 +110,24 @@ class GridnetEnv:
 
     # ------------------------------------------------------------------
     def decode(self, state: State, actions: torch.Tensor, player,
-               none_duration: Optional[int] = None) -> Candidates:
+               none_duration: Optional[int] = None,
+               view: Optional[State] = None) -> Candidates:
         """PlayerAction.fromVectorAction + fillWithNones(gs, player, 1)
         for one player (an int, or int32 ``[B]``: one per env), against
         the in-flight claims and produce costs of ``state``
         (gridnet.py:139-343).  With ``none_duration``, every
         NONE candidate gets that parameter: the bot path's NONE(10)
-        (ops/playout.py:81-86)."""
+        (ops/playout.py:81-86).  With ``view`` (the player's fog-of-war
+        view of ``state``), the in-flight claims are the view's
+        (gridnet.py:365-372); legality and the spend stay ``state``'s."""
         if self.engine._use_kernel(actions):
-            return KN.DECODE(self.cfg, state, actions, player, none_duration)
-        return self.decode_plain(state, actions, player, none_duration)
+            return KN.DECODE(self.cfg, state, actions, player, none_duration,
+                             view)
+        return self.decode_plain(state, actions, player, none_duration, view)
 
     def decode_plain(self, state: State, actions: torch.Tensor,
-                     player, none_duration: Optional[int] = None
-                     ) -> Candidates:
+                     player, none_duration: Optional[int] = None,
+                     view: Optional[State] = None) -> Candidates:
         cfg = self.cfg.engine
         H, W, T = self.h, self.w, cfg.num_types
         R = cfg.max_range
@@ -124,7 +137,7 @@ class GridnetEnv:
         dev = actions.device
         cost = self.engine.lut("cost", dev)
         me = as_player(player, dev)
-        claimed0 = self._inflight_claims(state)
+        claimed0 = self._inflight_claims(state if view is None else view)
         spent0 = self._inflight_spent(state, player)
 
         present = (state.utype > 0) & (state.owner == me) & ~state.busy
@@ -228,18 +241,32 @@ class GridnetEnv:
         return pc.sum((1, 2), dtype=I32)
 
     # ------------------------------------------------------------------
-    def step(self, state: State, a0: torch.Tensor, a1: torch.Tensor):
+    def step(self, state: State, a0: torch.Tensor, a1: torch.Tensor,
+             coins=None):
         """Self-play step (JNIGridnetClientSelfPlay.gameStep :159-190):
         decode p0 -> issue -> decode p1 against the post-issue state ->
         issue -> cycle (``frame_skip`` times) -> rewards.  Returns
-        (state', rewards float32 [B, 2, NR], done bool [B])."""
-        c0, c1, state2, done = self.advance(state, a0, a1)
+        (state', rewards float32 [B, 2, NR], done bool [B]).  ``coins``:
+        see ``advance``."""
+        c0, c1, state2, done = self.advance(state, a0, a1, coins)
         return state2, self.rewards(state, c0, c1, state2), done
 
-    def advance(self, state: State, a0: torch.Tensor, a1: torch.Tensor):
+    def advance(self, state: State, a0: torch.Tensor, a1: torch.Tensor,
+                coins=None):
         """The step up to its epilogue: (candidates p0, candidates p1,
-        state after the cycles, gameover bool [B])."""
+        state after the cycles, gameover bool [B]).  Under partial
+        observability: each player decodes with its view's claims, both
+        issues are the full ``issue`` (``coins``: the two issues' bool
+        ``[B, H, W, 4]`` coins, which CANCEL_RANDOM needs) and one cycle
+        (gridnet.py:357-378)."""
         eng = self.engine
+        if self.partial_obs:
+            k0, k1 = coins if coins is not None else (None, None)
+            c0 = self.decode(state, a0, 0, view=self.po_view(state, 0))
+            state1 = eng.issue(state, c0, k0)
+            c1 = self.decode(state1, a1, 1, view=self.po_view(state1, 1))
+            state2, done = eng.cycle(eng.issue(state1, c1, k1))
+            return c0, c1, state2, done
         c0 = self.decode(state, a0, 0)
         state1 = eng.issue_env(state, c0)
         c1 = self.decode(state1, a1, 1)
@@ -278,14 +305,27 @@ class GridnetEnv:
                             self._rewards(pre, c1, 1, after)], 1)
 
     # ------------------------------------------------------------------
+    def po_view(self, state: State, player) -> State:
+        """``player``'s (an int or int32 ``[B]``) fog-of-war view of
+        ``state`` (engine/fog.py ``po_state``)."""
+        return fog.po_state(state, player, self.cfg.engine,
+                            plain=self.engine.plain)
+
     def observation(self, state: State, player: int) -> torch.Tensor:
         """GameState.getVectorObservation: int32 [B, 6, H, W] planes hp,
-        carried, owner-relative, type+1, current action type, walls."""
+        carried, owner-relative, type+1, current action type, walls; under
+        partial observability the 8 PO planes [B, 8, H, W] of the view
+        (engine/fog.py ``observation_po``)."""
+        if self.partial_obs:
+            return fog.observation_po(state, player, self.cfg.engine,
+                                      plain=self.engine.plain)
         if self.engine._use_kernel(state.utype):
             return KN.SPLICE_OBS(self.cfg.engine, state, obs=(player,))[1][0]
         return self.observation_plain(state, player)
 
     def observation_plain(self, state: State, player: int) -> torch.Tensor:
+        if self.partial_obs:
+            return fog.observation_po_plain(state, player, self.cfg.engine)
         exists = state.utype > 0
         owner = state.owner.to(I32)
         ownerp = torch.where(exists & (owner >= 0),
@@ -301,8 +341,13 @@ class GridnetEnv:
         ], 1).to(I32)
 
     def observation_onehot(self, state: State, player: int) -> torch.Tensor:
-        """Binarized observation float32 [B, H, W, 5+5+3+(T+1)+6]."""
+        """Binarized observation float32 [B, H, W, 5+5+3+(T+1)+6] of
+        planes 0-4 of ``observation`` (under partial observability, of
+        the view)."""
         if self.engine._use_kernel(state.utype):
+            if self.partial_obs:
+                return KN.OBS_PO(self.cfg.engine, state, (player,),
+                                 onehot=(0,), obs=False)[1][0]
             return KN.SPLICE_OBS(self.cfg.engine, state,
                                  onehot=(player,))[2][0]
         return self.observation_onehot_plain(state, player)

@@ -9,7 +9,8 @@ The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
 ``EPILOGUE``, ``SPLICE_OBS``, ``SAMPLE``, ``LOGPROB``, ``LOGPROB_BWD``,
 ``RUSH``, ``EVENT_JUMP``, ``EVALUATE``, ``ARM_SAMPLE``,
 ``ARMS_TO_ACTION``, ``MCTS_DESCEND``, ``MCTS_BACKPROP``, ``ENUM_NEXT``,
-``MINIMAX_STEP``) take CUDA tensors only: they
+``MINIMAX_STEP``, ``ISSUE``, ``PO_STATE``, ``OBS_PO``) take CUDA tensors
+only: they
 check device, dtype, shape and contiguity, allocate the outputs, launch on
 PyTorch's current stream, raise if the launch reports a CUDA error, and
 count their launches in ``.launches``.  The callers in ``engine``,
@@ -38,7 +39,8 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 # the kernel sources (csrc/<name>.cu), one shared library each
 NAMES = ("actor", "decode", "issue_env", "cycle", "epilogue",
          "splice_obs", "policy_sample", "policy_logprob", "rush", "event",
-         "evaluation", "arms", "tree", "enumerate", "minimax")
+         "evaluation", "arms", "tree", "enumerate", "minimax", "issue",
+         "fog")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAXT = 16
@@ -118,7 +120,8 @@ class _Cfg(ctypes.Structure):
             "cost", "hp", "min_damage", "attack_range", "produce_time",
             "move_time", "attack_time", "harvest_time", "harvest_amount",
             "is_resource", "is_stockpile", "can_harvest", "can_move",
-            "can_attack", "produces")]
+            "can_attack", "produces", "sight_radius")] + [
+        ("move_conflict_policy", ctypes.c_int)]
 
 
 class _StateP(ctypes.Structure):
@@ -216,6 +219,11 @@ class _TripP(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in TRIP_FIELDS]
 
 
+class _PoSlot(ctypes.Structure):
+    _fields_ = [("player", ctypes.c_int), ("players", ctypes.c_void_p),
+                ("obs", ctypes.c_void_p), ("onehot", ctypes.c_void_p)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -229,14 +237,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     entries = {
         "actor": dict(actor=[cfg, st, _I, _I, _P, _P,
                              ctypes.POINTER(ctypes.c_float), _P, _P, _P]),
-        "decode": dict(decode=[cfg, st, _I, _I, _P, _P, _I, _I, cd, _P]),
+        "decode": dict(decode=[cfg, st, _I, _I, _P, _P, _I, _I, cd, st, _P]),
         "issue_env": dict(issue_env=[cfg, st, _I, cd, st, _P]),
         "cycle": dict(cycle=[cfg, st, _I, st, _P, _P, _P]),
         "epilogue": dict(epilogue=[cfg, ctypes.POINTER(_EpiCfg), _I, _P, _P,
                                    cd, cd, _P, _P, _P, _P, _I, _P, _P, _I,
                                    _P, _P, _P]),
-        "splice_obs": dict(splice_obs=[cfg, st, _I, _P, st, st, _P, _P, _P,
-                                       _P, _P]),
+        "splice_obs": dict(splice_obs=[cfg, st, _I, _P, st, _I, st, _P, _P,
+                                       _P, _P, _P]),
         "policy_sample": dict(policy_sample=[space, _I, _I, _P, _P, _P, _P,
                                              _P, _P, _P, _P]),
         "policy_logprob": dict(
@@ -267,6 +275,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                                       ctypes.POINTER(_StackP),
                                       ctypes.POINTER(_TripP), st, st, st, _I,
                                       _P]),
+        "issue": dict(issue=[cfg, st, _I, cd, _P, st, _P]),
+        "fog": dict(po_state=[cfg, st, _I, _I, _P, st, _P, _P],
+                    obs_po=[cfg, st, _I, ctypes.POINTER(_PoSlot),
+                            ctypes.POINTER(_PoSlot), _P]),
     }[name]
     for entry, argtypes in entries.items():
         fn = getattr(lib, f"{entry}_launch")
@@ -293,6 +305,8 @@ def _cfg(cfg: EngineConfig) -> _Cfg:
             getattr(c, f)[:T] = [int(v) for v in getattr(cfg, f)]
         c.produces[:T] = [sum(1 << j for j, v in enumerate(row) if v)
                           for row in cfg.produces]
+        c.sight_radius[:T] = [int(v) for v in cfg.sight_radius]
+        c.move_conflict_policy = int(cfg.move_conflict_policy)
         _CFGS[cfg] = c
     return _CFGS[cfg]
 
@@ -397,12 +411,14 @@ class _Actor(Kernel):
 
 class _Decode(Kernel):
     def __call__(self, env_cfg, state: State, actions: torch.Tensor,
-                 player, none_duration: Optional[int] = None
-                 ) -> Candidates:
+                 player, none_duration: Optional[int] = None,
+                 view: Optional[State] = None) -> Candidates:
         """Gridnet actions int32 ``[B, H, W, 7]`` of ``player`` (an int, or
         int32 ``[B]``: one per env) ->
         Candidates (six new int32 planes).  With ``none_duration``, every
-        NONE candidate gets that parameter (the bot path's padding)."""
+        NONE candidate gets that parameter (the bot path's padding); with
+        ``view`` (a State of the same batch), the in-flight claims are the
+        view's."""
         if none_duration is not None and none_duration < 0:
             raise ValueError("decode: none_duration must be >= 0")
         cfg = env_cfg.engine
@@ -414,12 +430,18 @@ class _Decode(Kernel):
                                        device=dev)
                            for _ in Candidates.FIELDS])
         me, players = _player(player, B, dev)
+        vp = None
+        if view is not None:
+            vp, vb = _state_p(view, cfg)
+            if vb != B:
+                raise ValueError(f"decode: view has batch {vb}, not {B}")
+            vp = ctypes.byref(vp)
         with torch.cuda.device(dev):
             self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
                          me, players, actions.data_ptr(),
                          int(env_cfg.max_produce_scan),
                          -1 if none_duration is None else int(none_duration),
-                         ctypes.byref(_cand_p(out, (B, H, W), dev)),
+                         ctypes.byref(_cand_p(out, (B, H, W), dev)), vp,
                          _stream(dev))
         return out
 
@@ -451,6 +473,31 @@ class _IssueEnv(Kernel):
         with torch.cuda.device(dev):
             self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
                          ctypes.byref(cp), ctypes.byref(op), _stream(dev))
+        return out
+
+
+class _Issue(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State, cand: Candidates,
+                 coins: Optional[torch.Tensor] = None) -> State:
+        """Full issueSafe.  ``coins`` (bool ``[B, H, W, 4]``, by sorted
+        claimant slot) decides CANCEL_RANDOM's conflicts and is required
+        under that policy (ignored under the others).  Returns a new
+        State: new busy, assignment planes, order_ctr and cancel_ctr; the
+        other fields are the input's tensors."""
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W = cfg.height, cfg.width
+        cp = _cand_p(cand, (B, H, W), dev)
+        kp = None
+        if cfg.move_conflict_policy == 2:
+            if coins is None:
+                raise ValueError("issue: CANCEL_RANDOM needs coins")
+            kp = _check("coins", coins, torch.bool, (B, H, W, 4), dev)
+        out = _fresh(state, _ISSUE_OUT + ("cancel_ctr",))
+        op, _ = _state_p(out, cfg)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
+                         ctypes.byref(cp), kp, ctypes.byref(op), _stream(dev))
         return out
 
 
@@ -554,9 +601,9 @@ class _SpliceObs(Kernel):
                  init: Optional[State] = None, obs=(), onehot=()):
         """The auto-reset splice and the observations.
 
-        With ``reset`` (bool ``[B]``) and ``init`` (a batch-1 State), the
-        spliced State (every field new): ``init`` where ``reset`` else
-        ``state``.  ``obs`` and ``onehot`` name the players whose int32
+        With ``reset`` (bool ``[B]``) and ``init`` (a State of batch 1 or
+        B: one per env), the spliced State (every field new): ``init``
+        where ``reset`` else ``state``.  ``obs`` and ``onehot`` name the players whose int32
         observation ``[len(obs), B, 6, H, W]`` and float32 one-hot
         ``[len(onehot), B, H, W, 20+T]`` of the (spliced) state are
         written.  Returns (State or None, obs or None, onehot or None)."""
@@ -564,12 +611,14 @@ class _SpliceObs(Kernel):
         dev = state.utype.device
         H, W, T = cfg.height, cfg.width, cfg.num_types
         out = op = ip = None
+        batched = 0     # init holds one row per env
         if reset is not None:
             _check("reset", reset, torch.bool, (B,), dev)
-            ip, one = _state_p(init, cfg)
-            if one != 1:
-                raise ValueError(f"splice_obs: init has batch {one}, not 1")
-            ip = ctypes.byref(ip)
+            ip, nb = _state_p(init, cfg)
+            if nb not in (1, B):
+                raise ValueError(f"splice_obs: init has batch {nb}, not 1 "
+                                 f"or {B}")
+            ip, batched = ctypes.byref(ip), int(nb != 1)
             out = _fresh(state, FIELD_DTYPES)
             op = ctypes.byref(_state_p(out, cfg)[0])
         ob = oh = None
@@ -589,7 +638,7 @@ class _SpliceObs(Kernel):
         with torch.cuda.device(dev):
             self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
                          reset.data_ptr() if reset is not None else None,
-                         ip, op, *ptrs, _stream(dev))
+                         ip, batched, op, *ptrs, _stream(dev))
         return out, ob, oh
 
 
@@ -1068,6 +1117,71 @@ class _MinimaxStep(Kernel):
                          int(maxp), _stream(dev))
 
 
+# the unit planes of a fog-of-war view (terrain and the scalars shared)
+_VIEW_OUT = ("utype", "owner", "hp", "carried", "uid", "busy", "atype",
+             "aparam", "atx", "aty", "aptype", "aticks", "aorder", "atime")
+
+
+class _PoState(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State, player,
+                 view: bool = True):
+        """``player``'s (an int, or int32 ``[B]``: one per env) fog-of-war
+        view and visibility.  Returns (the view, a State whose unit planes
+        are new and whose terrain and scalars are the input's, or None
+        when ``view`` is False; visibility bool ``[B, H, W]``)."""
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        me, players = _player(player, B, dev)
+        out = _fresh(state, _VIEW_OUT) if view else None
+        vis = torch.empty((B, cfg.height, cfg.width), dtype=torch.bool,
+                          device=dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B, me,
+                         players, None if out is None
+                         else ctypes.byref(_state_p(out, cfg)[0]),
+                         vis.data_ptr(), _stream(dev))
+        return out, vis
+
+
+class _ObsPo(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State, players,
+                 onehot=(), obs: bool = True):
+        """The 8-plane partially observable observation of one or two
+        ``players`` (each an int, or int32 ``[B]``: one per env), int32
+        ``[len(players), B, 8, H, W]`` (None when ``obs`` is False), and
+        the float32 one-hot ``[len(onehot), B, H, W, 20+T]`` of planes 0-4
+        of the players at indices ``onehot`` of ``players`` (None when
+        empty).  Returns (obs, onehot)."""
+        if not 1 <= len(players) <= 2:
+            raise ValueError("obs_po: one or two players")
+        if not obs and not onehot:
+            raise ValueError("obs_po: nothing to compute")
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W, T = cfg.height, cfg.width, cfg.num_types
+        ob = (torch.empty((len(players), B, 8, H, W), dtype=torch.int32,
+                          device=dev) if obs else None)
+        oh = (torch.empty((len(onehot), B, H, W, 20 + T),
+                          dtype=torch.float32, device=dev)
+              if onehot else None)
+        slots = []
+        for i in range(2):
+            if i >= len(players):
+                slots.append(_PoSlot())
+                continue
+            me, pl = _player(players[i], B, dev)
+            slots.append(_PoSlot(
+                player=me, players=pl,
+                obs=ob[i].data_ptr() if ob is not None else None,
+                onehot=(oh[list(onehot).index(i)].data_ptr()
+                        if i in onehot else None)))
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
+                         ctypes.byref(slots[0]), ctypes.byref(slots[1]),
+                         _stream(dev))
+        return ob, oh
+
+
 # ``replaces``: the JAX function each kernel stands for (file:line)
 ACTOR = _Actor("actor", "microrts_tpu/engine/kernel.py:742")  # + scripted.py:69
 DECODE = _Decode("decode", "microrts_tpu/env/gridnet.py:139")
@@ -1109,10 +1223,16 @@ ENUM_NEXT = _EnumNext("enum_next", "microrts_tpu/ops/enumerate.py:180",
 # + minimax.py:159-181 (pop), :194-225 (push), ops/enumerate.py:105 (init)
 MINIMAX_STEP = _MinimaxStep("minimax_step",
                             "microrts_tpu/bots/minimax.py:151", "minimax")
+# + kernel.py:125 (sort4), :105 (select_dir), :112 (stack_b), :119 (sum2)
+ISSUE = _Issue("issue", "microrts_tpu/engine/kernel.py:291")
+# + fog.py:27 (visibility)
+PO_STATE = _PoState("po_state", "microrts_tpu/engine/fog.py:43", "fog")
+# + gridnet.py:446 (the one-hot of its planes 0-4)
+OBS_PO = _ObsPo("obs_po", "microrts_tpu/engine/fog.py:67", "fog")
 KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE,
            LOGPROB, LOGPROB_BWD, RUSH, EVENT_JUMP, EVALUATE, ARM_SAMPLE,
            ARMS_TO_ACTION, MCTS_DESCEND, MCTS_BACKPROP, ENUM_NEXT,
-           MINIMAX_STEP)
+           MINIMAX_STEP, ISSUE, PO_STATE, OBS_PO)
 
 
 def reset_counts() -> None:

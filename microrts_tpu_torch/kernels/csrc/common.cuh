@@ -29,6 +29,8 @@ struct Cfg {
   int is_resource[MAXT], is_stockpile[MAXT], can_harvest[MAXT];
   int can_move[MAXT], can_attack[MAXT];
   int produces[MAXT];  // bit j of produces[i]: type i can produce type j
+  int sight_radius[MAXT];
+  int move_conflict_policy;  // 1 CANCEL_BOTH, 2 RANDOM, 3 ALTERNATING
 };
 
 // One batch of states.  Board/assignment planes are [B, H, W];
@@ -55,6 +57,67 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 // Type index of a utype value (utype - 1 clipped to [0, T-1]).
 __device__ __forceinline__ int tidx(const Cfg& cfg, int utype) {
   return clampi(utype - 1, 0, cfg.T - 1);
+}
+
+// Legality (Unit.canExecuteAction; the JAX package's make_engine.validate,
+// microrts_tpu/engine/kernel.py:216) and ETA (UnitAction.ETA; eta_of,
+// :277) of the candidate of the unit at (x, y) of type index t, owner me,
+// carrying `carried`, whose player holds `bal`.  The env's utype, owner
+// and free (terrain and no unit) planes are staged in shared memory.  The
+// direction neighbour of a param outside 1..3 is direction 0's, as the
+// TPU version's unrolled select reads it.
+__device__ __forceinline__ bool legal_eta(
+    const Cfg& cfg, const int8_t* s_utype, const int8_t* s_owner,
+    const uint8_t* s_free, int x, int y, int t, int me, int carried,
+    int bal, int at, int param, int ptype, int atx, int aty, int* eta) {
+  const int H = cfg.H, W = cfg.W, T = cfg.T, R = cfg.R;
+  const int pt = clampi(ptype, 0, T - 1);
+  const int sd = (param >= 1 && param <= 3) ? param : 0;
+  const int nx = x + dir_dx(sd), ny = y + dir_dy(sd);
+  bool free_n = false, res_n = false, stock_n = false;
+  if (nx >= 0 && nx < W && ny >= 0 && ny < H) {
+    const int n = ny * W + nx;
+    const int nut = s_utype[n];
+    const int nt = tidx(cfg, nut);
+    free_n = s_free[n];
+    res_n = nut > 0 && cfg.is_resource[nt];
+    stock_n = nut > 0 && cfg.is_stockpile[nt] && s_owner[n] == me;
+  }
+  bool hit = false;  // an enemy unit at the attack target, in range
+  {
+    const int dx = atx - x, dy = aty - y;
+    const int d2 = dx * dx + dy * dy;
+    const int rng = cfg.attack_range[t];
+    if (dx >= -R && dx <= R && dy >= -R && dy <= R && d2 > 0
+        && d2 <= R * R && d2 <= rng * rng) {
+      const int tx = x + dx, ty = y + dy;
+      if (tx >= 0 && tx < W && ty >= 0 && ty < H) {
+        const int n = ty * W + tx;
+        const int no = s_owner[n];
+        hit = s_utype[n] > 0 && no >= 0 && no != me;
+      }
+    }
+  }
+  bool legal = false;
+  int e = 0;
+  switch (at) {
+    case A_NONE: legal = true; e = param; break;
+    case A_MOVE: legal = cfg.can_move[t] && free_n; e = cfg.move_time[t]; break;
+    case A_HARVEST:
+      legal = cfg.can_harvest[t] && carried == 0 && res_n;
+      e = cfg.harvest_time[t]; break;
+    case A_RETURN:
+      legal = cfg.can_harvest[t] && carried > 0 && stock_n;
+      e = cfg.move_time[t]; break;
+    case A_PRODUCE:
+      legal = ((cfg.produces[t] >> pt) & 1) && cfg.cost[pt] <= bal && free_n;
+      e = cfg.produce_time[pt]; break;
+    case A_ATTACK:
+      legal = cfg.can_attack[t] && hit; e = cfg.attack_time[t]; break;
+    default: break;
+  }
+  *eta = e;
+  return legal;
 }
 
 // The gridnet action [7] of arm ``arm`` of the search bots' arm catalog

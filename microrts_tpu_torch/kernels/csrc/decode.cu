@@ -22,14 +22,18 @@
 // block).  This replaces the packed-key min extraction of the TPU version.
 // none_duration >= 0 gives every NONE candidate that duration: the bot
 // path's NONE(10) of playout_step (microrts_tpu/ops/playout.py:81-86);
-// the RL path passes -1 and keeps decode's own parameters.
+// the RL path passes -1 and keeps decode's own parameters.  Under partial
+// observability the in-flight claims come from the player's fog-of-war
+// view (`view`, gridnet.py:365-372); legality and the spend stay the
+// state's.
 #include "common.cuh"
 
 #define MAXKP 64
 
 __global__ void decode_kernel(Cfg cfg, StateP s, int player,
                               const int32_t* players, const int32_t* act,
-                              int kp, int none_duration, CandP out) {
+                              int kp, int none_duration, CandP out,
+                              int has_view, StateP view) {
   const int me = players != nullptr ? players[blockIdx.x] : player;
   const int H = cfg.H, W = cfg.W, T = cfg.T, R = cfg.R, D = 2 * cfg.R + 1;
   const int HW = H * W, L = HW + 2 * W;
@@ -55,15 +59,18 @@ __global__ void decode_kernel(Cfg cfg, StateP s, int player,
   if (threadIdx.x == 0) s_spent0 = 0;
   __syncthreads();
 
-  // in-flight claims (every player) and this player's in-flight spend
+  // in-flight claims (every player; of the view where given) and this
+  // player's in-flight spend
+  const StateP& cs = has_view ? view : s;
   for (int c = threadIdx.x; c < HW; c += blockDim.x) {
-    if (!s.busy[base + c]) continue;
-    int at = s.atype[base + c];
-    if (at == A_MOVE || at == A_PRODUCE) {
-      int d = s.aparam[base + c];
-      if (d >= 0 && d < 4) s_claim[W + c + OFF[d]] = 1;
+    if (cs.busy[base + c]) {
+      const int at = cs.atype[base + c];
+      const int d = cs.aparam[base + c];
+      if ((at == A_MOVE || at == A_PRODUCE) && d >= 0 && d < 4)
+        s_claim[W + c + OFF[d]] = 1;
     }
-    if (at == A_PRODUCE && s.owner[base + c] == me)
+    if (s.busy[base + c] && s.atype[base + c] == A_PRODUCE
+        && s.owner[base + c] == me)
       atomicAdd(&s_spent0, cfg.cost[clampi(s.aptype[base + c], 0, T - 1)]);
   }
   __syncthreads();
@@ -162,12 +169,14 @@ __global__ void decode_kernel(Cfg cfg, StateP s, int player,
   }
 }
 
-// players: int32 [batch] (one player per env), or null for `player`
+// players: int32 [batch] (one player per env), or null for `player`;
+// view: the claims' source state, or null for `s`
 extern "C" int decode_launch(const Cfg* cfg, const StateP* s, int batch,
                              int player, const int32_t* players,
                              const int32_t* act,
                              int max_produce_scan, int none_duration,
-                             const CandP* out, void* stream) {
+                             const CandP* out, const StateP* view,
+                             void* stream) {
   const int HW = cfg->H * cfg->W, L = HW + 2 * cfg->W;
   if (max_produce_scan > MAXKP || L > 32767) return (int)cudaErrorInvalidValue;
   size_t smem = carve_bytes(L) + 2 * carve_bytes(4 * (size_t)L)
@@ -176,6 +185,6 @@ extern "C" int decode_launch(const Cfg* cfg, const StateP* s, int batch,
   if (e != cudaSuccess) return (int)e;
   decode_kernel<<<batch, block_threads(HW), smem, (cudaStream_t)stream>>>(
       *cfg, *s, player, players, act, max_produce_scan, none_duration,
-      *out);
+      *out, view != nullptr, view ? *view : *s);
   return (int)cudaGetLastError();
 }

@@ -12,14 +12,13 @@
 //
 // Design: one block per env; utype, owner and free are staged in shared
 // memory for the neighbour and attack-box reads.  Each thread checks its
-// cell's one candidate: the direction neighbour (a param outside 1..3
-// reads direction 0, as the TPU version's unrolled select does) and the
-// attack target inside the (2R+1)^2 box.  Illegal actions become
+// cell's one candidate (common.cuh legal_eta: the direction neighbour and
+// the attack target inside the (2R+1)^2 box).  Illegal actions become
 // NONE(ETA of the attempt).  Thread 0 advances order_ctr by 2*H*W.
 #include "common.cuh"
 
 __global__ void issue_env_kernel(Cfg cfg, StateP s, CandP cand, StateP o) {
-  const int H = cfg.H, W = cfg.W, T = cfg.T, R = cfg.R;
+  const int H = cfg.H, W = cfg.W;
   const int HW = H * W;
   const int b = blockIdx.x;
   const size_t base = (size_t)b * HW;
@@ -65,58 +64,11 @@ __global__ void issue_env_kernel(Cfg cfg, StateP s, CandP cand, StateP o) {
       o.atime[i] = s.atime[i];
       continue;
     }
-    const int carried = s.carried[i];
-    const int pt = clampi(ptype, 0, T - 1);
-
-    // the direction neighbour
-    const int sd = (param >= 1 && param <= 3) ? param : 0;
-    const int nx = x + dir_dx(sd), ny = y + dir_dy(sd);
-    bool free_n = false, res_n = false, stock_n = false;
-    if (nx >= 0 && nx < W && ny >= 0 && ny < H) {
-      const int n = ny * W + nx;
-      const int nut = s_utype[n];
-      const int nt = tidx(cfg, nut);
-      free_n = s_free[n];
-      res_n = nut > 0 && cfg.is_resource[nt];
-      stock_n = nut > 0 && cfg.is_stockpile[nt] && s_owner[n] == me;
-    }
-    // the attack target
-    bool hit = false;
-    {
-      const int dx = atx - x, dy = aty - y;
-      const int d2 = dx * dx + dy * dy;
-      const int rng = cfg.attack_range[t];
-      if (dx >= -R && dx <= R && dy >= -R && dy <= R && d2 > 0
-          && d2 <= R * R && d2 <= rng * rng) {
-        const int tx = x + dx, ty = y + dy;
-        if (tx >= 0 && tx < W && ty >= 0 && ty < H) {
-          const int n = ty * W + tx;
-          const int no = s_owner[n];
-          hit = s_utype[n] > 0 && no >= 0 && no != me;
-        }
-      }
-    }
     const int bal = me == 1 ? res1 : res0;
-    bool legal = false;
-    int eta = 0;
-    switch (at) {
-      case A_NONE: legal = true; eta = param; break;
-      case A_MOVE:
-        legal = cfg.can_move[t] && free_n; eta = cfg.move_time[t]; break;
-      case A_HARVEST:
-        legal = cfg.can_harvest[t] && carried == 0 && res_n;
-        eta = cfg.harvest_time[t]; break;
-      case A_RETURN:
-        legal = cfg.can_harvest[t] && carried > 0 && stock_n;
-        eta = cfg.move_time[t]; break;
-      case A_PRODUCE:
-        legal = ((cfg.produces[t] >> pt) & 1) && cfg.cost[pt] <= bal
-                && free_n;
-        eta = cfg.produce_time[pt]; break;
-      case A_ATTACK:
-        legal = cfg.can_attack[t] && hit; eta = cfg.attack_time[t]; break;
-      default: break;
-    }
+    int eta;
+    const bool legal = legal_eta(cfg, s_utype, s_owner, s_free, x, y, t, me,
+                                 s.carried[i], bal, at, param, ptype, atx,
+                                 aty, &eta);
     o.busy[i] = 1;
     o.atype[i] = (int8_t)(legal ? at : A_NONE);
     o.aparam[i] = (int16_t)(legal ? param : eta);

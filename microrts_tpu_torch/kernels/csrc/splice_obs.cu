@@ -2,8 +2,9 @@
 //
 // Replaces the fresh-reset select of VecGridnetEnv.step
 // (microrts_tpu/env/vec.py:92-97, every State field against the batch-1
-// initial state), GridnetEnv.observation (microrts_tpu/env/gridnet.py:424)
-// and observation_onehot (:446).
+// initial state, or MapPoolVecEnv.step's bank row of each env's own map,
+// microrts_tpu/env/pool.py:101-105), GridnetEnv.observation
+// (microrts_tpu/env/gridnet.py:424) and observation_onehot (:446).
 //
 // Bound at B=1024, 16x16, with the splice, both int32 observations and
 // one player's one-hot: it reads the 15 planes (30 B/cell) and writes
@@ -22,7 +23,8 @@
 #include "common.cuh"
 
 __global__ void splice_obs_kernel(Cfg cfg, StateP s, const uint8_t* mask,
-                                  StateP init, int write_state, StateP o,
+                                  StateP init, int init_batched,
+                                  int write_state, StateP o,
                                   int32_t* obs0, int32_t* obs1, float* oh0,
                                   float* oh1) {
   const int H = cfg.H, W = cfg.W, T = cfg.T;
@@ -31,7 +33,8 @@ __global__ void splice_obs_kernel(Cfg cfg, StateP s, const uint8_t* mask,
   const int b = blockIdx.x;
   const bool rs = mask != nullptr && mask[b];
   const StateP& src = rs ? init : s;
-  const size_t sb = rs ? 0 : (size_t)b * HW;  // source cell base
+  const size_t k = (rs && !init_batched) ? 0 : b;  // source env
+  const size_t sb = k * HW;                          // source cell base
   const size_t ob = (size_t)b * HW;           // output cell base
   extern __shared__ unsigned char smem[];
   unsigned char* p = smem;
@@ -77,7 +80,6 @@ __global__ void splice_obs_kernel(Cfg cfg, StateP s, const uint8_t* mask,
     s_act[c] = (uint8_t)clampi(vact, 0, 255);
   }
   if (write_state && threadIdx.x == 0) {
-    const size_t k = rs ? 0 : b;
     o.time[b] = src.time[k];
     o.resources[2 * b] = src.resources[2 * k];
     o.resources[2 * b + 1] = src.resources[2 * k + 1];
@@ -109,7 +111,8 @@ __global__ void splice_obs_kernel(Cfg cfg, StateP s, const uint8_t* mask,
 
 extern "C" int splice_obs_launch(const Cfg* cfg, const StateP* s, int batch,
                                  const uint8_t* mask, const StateP* init,
-                                 const StateP* out, int32_t* obs0,
+                                 int init_batched, const StateP* out,
+                                 int32_t* obs0,
                                  int32_t* obs1, float* oh0, float* oh1,
                                  void* stream) {
   const int HW = cfg->H * cfg->W;
@@ -119,7 +122,8 @@ extern "C" int splice_obs_launch(const Cfg* cfg, const StateP* s, int batch,
   StateP none = {};
   splice_obs_kernel<<<batch, block_threads(HW), smem,
                       (cudaStream_t)stream>>>(
-      *cfg, *s, mask, init ? *init : none, out != nullptr, out ? *out : none,
+      *cfg, *s, mask, init ? *init : none, init_batched, out != nullptr,
+      out ? *out : none,
       obs0, obs1, oh0, oh1);
   return (int)cudaGetLastError();
 }

@@ -256,8 +256,6 @@ def test_frame_skip():
 def test_not_ported_options_raise():
     path = asset_path(MAPS[0])
     with pytest.raises(NotImplementedError):
-        GridnetEnv(path, partial_obs=True, device="cpu")
-    with pytest.raises(NotImplementedError):
         GridnetEnv(path, reward_fns=("winloss", "closertoenemybase"),
                    device="cpu")
 

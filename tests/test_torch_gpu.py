@@ -26,6 +26,7 @@ import torch
 from microrts_tpu_torch.bots import scripted as S
 from microrts_tpu_torch.bots.scripted import random_bot, random_opponent
 from microrts_tpu_torch.config import RUSH_BOTS, make_bot
+from microrts_tpu_torch.engine.types import FIELD_DTYPES, State
 from microrts_tpu_torch.env.gridnet import GridnetEnv
 from microrts_tpu_torch.env.vec import VecGridnetEnv
 from microrts_tpu_torch.models.gridnet_policy import (
@@ -81,7 +82,8 @@ def test_kernel_path_equals_plain_on_card(map_rel):
         epilogue=ticks, splice_obs=ticks, policy_sample=0,
         policy_logprob_fwd=0, policy_logprob_bwd=0, rush=0, event_jump=0,
         evaluate=0, arm_sample=0, arms_to_action=0, mcts_descend=0,
-        mcts_backprop=0, enum_next=0, minimax_step=0)
+        mcts_backprop=0, enum_next=0, minimax_step=0, issue=0, po_state=0,
+        obs_po=0)
 
 
 def _states(env, B, ticks, seed):
@@ -242,9 +244,10 @@ def test_kernel_rejects_bad_input_on_card():
         KN.EPILOGUE(env.cfg, s, s, c, c, torch.zeros(4, device="cuda"), 9)
     with pytest.raises(ValueError):
         KN.EPILOGUE(env.cfg, s, s.replace(owner=s.owner[:2]), c, c)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):     # init of batch neither 1 nor B
         KN.SPLICE_OBS(env.cfg.engine, s, torch.zeros(4, dtype=torch.bool,
-                                                     device="cuda"), s)
+                                                     device="cuda"),
+                      State(**{f: getattr(s, f)[:2] for f in FIELD_DTYPES}))
     with pytest.raises(TypeError):
         KN.SPLICE_OBS(env.cfg.engine, s, torch.zeros(4, device="cuda"),
                       env.init_state)
@@ -400,10 +403,11 @@ def test_update_kernel_path_matches_plain_on_card():
             assert not any(counts.values()), counts
         else:
             # every kernel of training; the decision-frame path's, the
-            # tree search's and the minimax search's not
+            # tree search's, the minimax search's and the fog's not
             search = ("event_jump", "evaluate", "arm_sample",
                       "arms_to_action", "mcts_descend", "mcts_backprop",
-                      "enum_next", "minimax_step")
+                      "enum_next", "minimax_step", "issue", "po_state",
+                      "obs_po")
             assert all(v > 0 for n, v in counts.items()
                        if n not in search), counts
             assert not any(counts[n] for n in search), counts
@@ -861,3 +865,204 @@ def test_minimax_kernels_reject_bad_input_on_card():
                         trip, 0)
     KN.MINIMAX_STEP(cfg, sp, stk, trip, 0)
     assert stk.done.all() and (stk.it == 1).all()
+
+
+def _claims(g, s, T):
+    """Random candidates for every cell of ``s``: mostly moves and
+    produces in random directions (parameters past the range too), ranks
+    a random permutation of the cells per env."""
+    B, H, W = s.utype.shape
+    dev = s.utype.device
+
+    def ri(lo, hi):
+        return torch.randint(lo, hi, (B, H, W), generator=g, device=dev,
+                             dtype=torch.int32)
+    coin = torch.rand((B, H, W), generator=g, device=dev)
+    at = torch.where(coin < 0.35, 1, torch.where(coin < 0.7, 4, ri(-1, 6)))
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    rank = torch.argsort(torch.rand((B, H * W), generator=g, device=dev), 1)
+    from microrts_tpu_torch.engine.types import Candidates
+    return Candidates(atype=at.int(), aparam=ri(-1, 5),
+                      atx=(xs + ri(-3, 4)).int(), aty=(ys + ri(-3, 4)).int(),
+                      aptype=ri(0, T), rank=rank.int().reshape(B, H, W))
+
+
+def _po_inputs(env, B, ticks, seed):
+    """The plain PO step's inputs on the card: [(state, candidates p0,
+    state after p0's issue, candidates p1)] of every tick."""
+    dev = env.device
+    bot = random_bot(env, BIAS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    s = env.reset(B)
+    out = []
+    for _ in range(ticks):
+        u0, u1 = (torch.rand((B, env.h, env.w, 2), generator=g, device=dev)
+                  for _ in (0, 1))
+        a0, a1 = bot(s, 0, u0), bot(s, 1, u1)
+        c0 = env.decode(s, a0, 0, view=env.po_view(s, 0))
+        s1 = env.engine.issue(s, c0)
+        c1 = env.decode(s1, a1, 1, view=env.po_view(s1, 1))
+        out.append((s, c0, s1, c1))
+        s, _ = env.engine.cycle(env.engine.issue(s1, c1))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_issue_kernel_equals_plain_on_card(map_rel):
+    """The issue kernel against the plain ``issue``: on the PO step's
+    inputs and on random candidate tables under the three move-conflict
+    policies (whole states), and against ``issue_env`` on decode-vetted
+    full-observation candidates."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.engine.kernel import make_engine
+    dev = torch.device("cuda")
+    penv = GridnetEnv(asset_path(map_rel), partial_obs=True, device=dev,
+                      plain=True)
+    cfg = penv.cfg.engine
+    B = 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    bot = random_bot(penv, BIAS)
+    counts = {}
+    for s, c0, s1, c1 in _po_inputs(penv, B, 40, 1)[::4]:
+        for p, st, c in ((0, s, c0), (1, s1, c1)):
+            assert KN.ISSUE(cfg, st, c).equal(
+                penv.engine.issue_plain(st, c)) == (True, "")
+            # decode against the full state's claims: issue_env's inputs
+            u = torch.rand((B, penv.h, penv.w, 2), generator=g, device=dev)
+            fc = penv.decode_plain(st, bot(st, p, u), p)
+            assert KN.ISSUE(cfg, st, fc).equal(
+                KN.ISSUE_ENV(cfg, st, fc)) == (True, "")
+        for policy in (1, 2, 3):
+            pcfg = dataclasses.replace(cfg, move_conflict_policy=policy)
+            eng = make_engine(pcfg, plain=True)
+            st = s1.replace(
+                cancel_ctr=torch.randint(0, 6, (B,), generator=g, device=dev,
+                                         dtype=torch.int32),
+                resources=torch.randint(0, 12, (B, 2), generator=g,
+                                        device=dev, dtype=torch.int32))
+            c = _claims(g, st, cfg.num_types)
+            coins = torch.rand((B, penv.h, penv.w, 4), generator=g,
+                               device=dev) < 0.5
+            want = eng.issue_plain(st, c, coins, counts)
+            assert KN.ISSUE(pcfg, st, c, coins).equal(want) == (True, "")
+    # melee8x8Mixed6 has no producer: its produces never reach the
+    # resource cancel
+    assert counts["xc_position"] > 0, counts
+    assert counts["xc_resource"] > 0 or "melee" in map_rel, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_fog_kernels_equal_plain_on_card(map_rel):
+    """po_state, obs_po (with the one-hot) and decode with a view against
+    their plain versions, both players and a per-lane player vector."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.engine import fog
+    from microrts_tpu_torch.engine.types import Candidates
+    dev = torch.device("cuda")
+    penv = GridnetEnv(asset_path(map_rel), partial_obs=True, device=dev,
+                      plain=True)
+    kenv = GridnetEnv(asset_path(map_rel), partial_obs=True, device=dev)
+    cfg = penv.cfg.engine
+    B = 64
+    lanes = (torch.arange(B, device=dev) % 2).int()
+    bot = random_bot(penv, BIAS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    for s, _, _, _ in _po_inputs(penv, B, 60, 2)[::6]:
+        for p in (0, 1, lanes):
+            view, vis = KN.PO_STATE(cfg, s, p)
+            assert view.equal(fog.po_state_plain(s, p, cfg)) == (True, "")
+            assert torch.equal(vis, fog.visibility_plain(s, p, cfg))
+            assert torch.equal(KN.PO_STATE(cfg, s, p, view=False)[1], vis)
+            obs, oh = KN.OBS_PO(cfg, s, (p, 0), onehot=(0, 1))
+            assert torch.equal(obs[0], fog.observation_po_plain(s, p, cfg))
+            assert torch.equal(obs[1], fog.observation_po_plain(s, 0, cfg))
+            assert torch.equal(oh[1], penv.observation_onehot_plain(s, 0))
+            u = torch.rand((B, penv.h, penv.w, 2), generator=g, device=dev)
+            a = bot(s, 0, u)
+            kc = kenv.decode(s, a, p, view=view)
+            pc = penv.decode_plain(s, a, p, view=view)
+            for f in Candidates.FIELDS:
+                assert torch.equal(getattr(kc, f), getattr(pc, f)), f
+
+
+@pytest.mark.gpu
+def test_po_vec_env_and_pool_equal_plain_on_card():
+    """The PO ``VecGridnetEnv`` and a PO ``MapPoolVecEnv`` (a padded 8x8
+    map in a 16x16 pool) through the kernels against the plain path, with
+    resets, and the PO step's launches."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.env.pool import MapPoolVecEnv
+    dev = torch.device("cuda")
+    path = asset_path(MAPS[1])
+    pool_maps = [path, asset_path("maps/8x8/basesWorkers8x8.xml"),
+                 asset_path("maps/16x16/TwoBasesBarracks16x16.xml")]
+    B, ticks = 48, 40
+    pairs = [(VecGridnetEnv(GridnetEnv(path, partial_obs=True, device=dev),
+                            B, 20),
+              VecGridnetEnv(GridnetEnv(path, partial_obs=True, device=dev,
+                                       plain=True), B, 20)),
+             tuple(MapPoolVecEnv(pool_maps, B, max_steps=20,
+                                 partial_obs=True, device=dev, plain=plain)
+                   for plain in (False, True))]
+    for kvec, pvec in pairs:
+        kbot, pbot = random_bot(kvec.env, BIAS), random_bot(pvec.env, BIAS)
+        ks, ksteps = kvec.reset()
+        ps, psteps = pvec.reset()
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        resets = 0
+        KN.reset_counts()
+        for t in range(ticks):
+            u0, u1 = (torch.rand((B, 16, 16, 2), generator=g, device=dev)
+                      for _ in (0, 1))
+            kout = kvec.step(ks, ksteps, kbot(ks, 0, u0), kbot(ks, 1, u1),
+                             onehot=(1,))
+            pout = pvec.step(ps, psteps, pbot(ps, 0, u0), pbot(ps, 1, u1),
+                             onehot=(1,))
+            assert kout[0].equal(pout[0]) == (True, ""), t
+            for a, b in zip(kout[1:], pout[1:]):
+                assert torch.equal(a, b), t
+            (ks, ksteps), (ps, psteps) = kout[:2], pout[:2]
+            resets += int(kout[5].sum())
+        assert resets > 0
+        c = KN.counts()
+        assert c == dict(c, actor=2 * ticks, decode=2 * ticks,
+                         issue=2 * ticks, po_state=2 * ticks, cycle=ticks,
+                         epilogue=ticks, splice_obs=ticks, obs_po=ticks)
+        assert sum(c.values()) == 12 * ticks, c
+
+
+@pytest.mark.gpu
+def test_fog_kernels_reject_bad_input_on_card():
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    env = GridnetEnv(asset_path("maps/8x8/basesWorkers8x8.xml"),
+                     partial_obs=True, device="cuda")
+    cfg = env.cfg.engine
+    s = env.reset(4)
+    z = torch.zeros((4, 8, 8, 7), dtype=torch.int32, device="cuda")
+    c = env.decode(s, z, 0)
+    rnd = dataclasses.replace(cfg, move_conflict_policy=2)
+    with pytest.raises(ValueError, match="coins"):
+        KN.ISSUE(rnd, s, c)
+    with pytest.raises(TypeError):
+        KN.ISSUE(rnd, s, c, torch.zeros((4, 8, 8, 4), device="cuda"))
+    with pytest.raises(TypeError):
+        KN.PO_STATE(cfg, s, torch.zeros(4, dtype=torch.int64,
+                                        device="cuda"))
+    with pytest.raises(ValueError):
+        KN.OBS_PO(cfg, s, (0, 1, 0))
+    with pytest.raises(ValueError):
+        KN.DECODE(env.cfg, s, z, 0, view=State(**{
+            f: getattr(s, f)[:2] for f in FIELD_DTYPES}))
+    assert KN.ISSUE(cfg, s, c).equal(env.engine.issue_plain(s, c)) == (
+        True, "")

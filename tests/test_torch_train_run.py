@@ -53,8 +53,8 @@ def test_run_refuses_what_is_not_ported():
         run.main(ARGS + ["--sharded"])
     with pytest.raises(NotImplementedError, match="item 10"):
         run.main(ARGS + ["--opponent", "ContinuingNaiveMCTS"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run.main(ARGS + ["--opponent", "POWorkerRush"])
+    with pytest.raises(NotImplementedError, match="item 4"):
+        run.main(ARGS + ["--opponent", "RandomBiasedSingleUnitAI"])
 
 
 def test_run_without_cpu_flag_needs_a_card():
