@@ -7,7 +7,7 @@ Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
 envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the twenty-one CUDA kernels (seventeen sources) from
+2. build: compiles the twenty-three CUDA kernels (eighteen sources) from
    ``microrts_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel; ``-Xptxas -v`` report printed);
 3. realistic states: runs the plain PyTorch path (RandomBiasedAI, bias 5,
@@ -65,10 +65,18 @@ envs:
    shortcut of the playouts and searches); ``po_state`` (K11b) and
    ``obs_po`` (K11c, with the one-hot) for both players and a per-lane
    player vector on the PO, rush and terminal records; ``decode`` with a
-   view on the PO records; each kernel and its plain version are timed
-   with CUDA events;
+   view on the PO records; ``believe_update`` (K13: init, update and the
+   sampled world) of the three levels for both observers along the PO
+   records, memories made at the first with the seen types cleared in
+   half the lanes, whole memories and worlds exact, the rules' cells
+   counted; ``mcts_reroot`` (K12g) on the trees of a reduced
+   ContinuingNaiveMCTS decision of 16 rush records, at the state after
+   the real step (WorkerRush's reply, the fast-forward), at a child's and
+   a grandchild's node state, at a state no node holds and with a third
+   of the lanes left out, whole trees exact; each kernel and its plain
+   version are timed with CUDA events (``mcts_reroot`` in [14]);
 5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
-   kernels next to the plain path, same start and uniforms, 256 ticks
+   kernels next to the plain path, same start and uniforms, 96 ticks
    with auto-resets; state, obs, rewards and dones equal at every tick;
    launches per step actor 2, decode 2, issue_env 2, cycle 1, epilogue 1,
    splice_obs 1, no other; then a steady window gives env-steps/s;
@@ -102,33 +110,33 @@ envs:
 8. the round robin: PassiveAI, RandomBiasedAI and the four rushes, 30
    ordered pairs x 34 games = 1020 lanes of one pool batch
    (``eval/tournament.round_robin``), through the kernels next to the
-   plain path with the same seed to 100 cycles (tables, winners and
+   plain path with the same seed to 40 cycles (tables, winners and
    final states equal; ``event_jump``, ``cycle``, the actor's, the
    step's and the rush kernels launched, ``evaluate`` not), and 64
    RandomBiasedAI vs WorkerRush games (``play_matches``) next to the
-   plain path to 450 cycles, in which games end (winners and frozen
+   plain path to 400 cycles, in which games end (winners and frozen
    final states equal), then ``round_robin`` timed on the kernels to
    the default 2000 cycles: game-ticks/s (the lanes' ticks over the wall
    seconds), frames, the table, and the device busy share of a profiled
    64-cycle run;
 9. MonteCarlo (K=12, playout_len 48): one decision of 64 recorded rush
-   games (768 playout lanes) and 16-cycle games against WorkerRush
+   games (768 playout lanes) and 8-cycle games against WorkerRush
    (``play_matches``), through the kernels next to the plain path with
    the same draws (actions, winners and final states equal;
    ``event_jump`` and ``evaluate`` launched); then eight timed
    decisions: game-decisions/s and playout ticks/s;
 10. ``train.run.evaluate``: the seeded bf16 policy against WorkerRush,
-   64 games to 32 cycles through the kernels next to the plain path
+   64 games to 16 cycles through the kernels next to the plain path
    (win-rate, winners and final states equal), then 1024 games to 2000
    cycles, timed, with its win-rate;
 11. tree search: one NaiveMCTS and one UCT decision of 16 rush records
    at a reduced budget (8 playouts, 16 nodes, 8 children or candidates,
    depth 4, playout_len 24) and 16 NaiveMCTS (2 playouts, depth 2,
-   playout_len 4) vs WorkerRush games to 16 cycles (``play_matches``),
+   playout_len 4) vs WorkerRush games to 4 cycles (``play_matches``),
    through the kernels next to the plain path with the same draws (whole
    trees, actions, winners and final states equal); on 64 recorded rush
    games at a decision frame of player 0, one decision of each at the
-   defaults' nodes, children and depth with short playouts (10 and 9
+   defaults' nodes, children and depth with short playouts (6 and 5
    playouts of 4 ticks), kernel next to plain (whole trees and actions
    equal), then one decision of each (``make_bot``: the JAX defaults),
    timed:
@@ -139,12 +147,12 @@ envs:
    the same draws (whole stacks, row S too, root values or scores, and
    actions equal; each bot launches ``enum_next`` and ``minimax_step``,
    SampledABCD neither, and no kernel outside its path), 16 ABCD-vs-
-   WorkerRush games to 8 cycles (``play_matches``) kernel vs plain
+   WorkerRush games to 4 cycles (``play_matches``) kernel vs plain
    (winners and final states equal), then one decision of each of
    ABCD, RTMinimax, IDRTMinimaxRandomized and SampledABCD on the 64 timed
    games at the defaults' stack and candidate shapes (ABCD depth 4,
    RTMinimax stack 12, the randomized bot's 8 x 8 DFS lanes a game at
-   stack 10, 8 x 8 SampledABCD candidates) with budgets of 48 trips and
+   stack 10, 8 x 8 SampledABCD candidates) with budgets of 32 trips and
    8-tick playouts, kernel vs plain (whole stacks, values and actions
    equal; the deepest stack row used printed), then one decision of the
    64 games at the JAX defaults (``make_bot``) of each of the four, timed:
@@ -152,7 +160,7 @@ envs:
    device's busy share of a profiled decision (ABCD's at a budget of 64);
 13. the PO main path: ``VecGridnetEnv(GridnetEnv(partial_obs=True))`` +
    ``random_bot`` through the kernels next to the plain path, same start
-   (the end of [3]'s PO run) and uniforms, 256 ticks with auto-resets;
+   (the end of [3]'s PO run) and uniforms, 96 ticks with auto-resets;
    state, 8-plane observations, the one-hot of each player's view,
    rewards and dones equal at every tick; launches per step actor 2,
    po_state 2, decode 2, issue 2, cycle 1, epilogue 1, splice_obs 1,
@@ -162,13 +170,34 @@ envs:
    basesWorkers8x8 and NoWhereToRun9x8, 64 ticks kernel vs plain (resets
    to each env's own map); a ``round_robin`` of the four PO rushes and
    WorkerRush on the PO env (20 ordered pairs x 8 games) kernel vs plain
-   to 150 cycles (winners, tables, states equal), then timed to 2000
+   to 24 cycles (winners, tables, states equal), then timed to 2000
    cycles: game-ticks/s;
-14. one JSON line of every kernel (launches: phase 7's for the training
+14. the stateful bots: 1024 WorkerRush-vs-LightRush games on the PO
+   env (2 (k % 32) random opening ticks in env k) played 240 ticks
+   through the kernels, then believe memories of levels 1-3 for both
+   observers, the seen types cleared in half the lanes, kernel vs plain
+   for 200 ticks (whole memories and sampled worlds exact; every rule of
+   each level fired for one observer or the other, the cells counted);
+   on the 64 timed games of [11], three
+   warm BS3_NaiveMCTS decisions at the JAX defaults (``make_bot``), each
+   followed by a NaiveMCTS decision on the same games and noise, timed
+   (medians and each pair's ratio), with BS3's launches, peak memory and
+   a profiled decision's busy share; ContinuingNaiveMCTS at the JAX
+   defaults against WorkerRush for 4 consecutive decisions (the first on
+   fresh trees), each timed with its launches, the re-root hit share and
+   the nodes carried, the peak memory, then ``mcts_reroot`` of the last
+   trees kernel vs plain (whole trees, row N included; some game keeps
+   more than 16 rows), each timed on copies, and a profiled decision's
+   busy share; and
+   ``play_matches_stateful`` of BS3 (the [11] games' budget) against
+   POWorkerRush and of ContinuingNaiveMCTS against WorkerRush, 16 games
+   to 4 cycles, kernel vs plain (winners and final states equal);
+15. one JSON line of every kernel (launches: phase 7's for the training
    kernels, one MonteCarlo decision's for ``event_jump`` and
    ``evaluate``, one NaiveMCTS decision's at the defaults for K12b-d, one
    ABCD decision's at the defaults for K12e-f, the PO main path's for
-   K11a-c; every phase's under
+   K11a-c, a ContinuingNaiveMCTS decision's for K12g and a BS3_NaiveMCTS
+   decision's for K13; every phase's under
    ``launches_by_phase``, [12] one entry a bot: the timed decision's, or
    for IDABCD and IDRTMinimax the reduced one's), the ``nvidia-smi``
    line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -184,6 +213,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -194,7 +224,7 @@ BIAS = 5.0
 MIN_TICKS = 300          # phase 3: at least this many plain ticks
 MAX_TICKS = 1500         # ... and at most this many while events are missing
 MIN_ATTACKS = 20         # completing attacks wanted in the recorded inputs
-MAIN_TICKS = 256         # phase 5: compared ticks
+MAIN_TICKS = 96          # phase 5: compared ticks
 MAX_STEPS = 96           # phase 5: episode cap, so that resets happen
 TIME_TICKS = 200         # phase 5: timed window
 ROLL_STEPS = 16          # phase 6: compared rollout steps
@@ -231,19 +261,19 @@ TRAIN_KERNELS = ROLLOUT_KERNELS + ("policy_logprob_fwd", "policy_logprob_bwd",
 RR_BOTS = ("PassiveAI", "RandomBiasedAI", "WorkerRush", "LightRush",
            "HeavyRush", "RangedRush")
 RR_GAMES = 34            # per ordered pair: 30 pairs x 34 = 1020 lanes
-RR_CHECK_CYCLES = 100    # phase 8: the kernel run next to the plain path
+RR_CHECK_CYCLES = 40     # phase 8: the kernel run next to the plain path
 WIN_CHECK_GAMES = 64     # phase 8: RandomBiasedAI vs WorkerRush next to the
-WIN_CHECK_CYCLES = 450   # ... plain path (WorkerRush wins from tick 360)
+WIN_CHECK_CYCLES = 400   # ... plain path (WorkerRush wins from tick 360)
 RR_CYCLES = 2000         # phase 8: timed at the JAX package's default
 RR_PROFILE_CYCLES = 64   # phase 8: the profiled window
 RR_KERNELS = ("actor", "decode", "issue_env", "cycle", "rush", "event_jump")
 MC_GAMES = 64            # phase 9: MonteCarlo (K=12, L=48) vs WorkerRush
-MC_CHECK_CYCLES = 16     # phase 9: the games next to the plain path
+MC_CHECK_CYCLES = 8      # phase 9: the games next to the plain path
 MC_TIME_DECISIONS = 8    # phase 9: timed decisions (64 games each)
 MC_KERNELS = ("actor", "decode", "issue_env", "cycle", "event_jump",
               "evaluate")
 EVAL_CHECK_GAMES = 64    # phase 10: evaluate next to the plain path ...
-EVAL_CHECK_CYCLES = 32   # ... over short games
+EVAL_CHECK_CYCLES = 16   # ... over short games
 EVAL_GAMES = 1024        # phase 10: evaluate of the policy vs WorkerRush
 # K12a: the Sqrt family and the upper bound sum small integers (exact);
 # Simple, Opt and Lanchester sum float32 terms in another order than the
@@ -260,12 +290,12 @@ TREE_CHECK = dict(n_playouts=8, max_nodes=16, max_children=8, max_depth=4,
 UCT_CHECK = dict(n_playouts=8, max_nodes=16, n_candidates=8, max_depth=4,
                  playout_len=24)
 TREE_GAME = dict(n_playouts=2, max_depth=2, playout_len=4)
-TREE_GAME_CYCLES = 16    # phase 11: NaiveMCTS vs WorkerRush, 16 games
+TREE_GAME_CYCLES = 4     # phase 11: NaiveMCTS vs WorkerRush, 16 games
 TREE_TIME_GAMES = 64     # phase 11: one decision at the JAX defaults
 # phase 11: kernel vs plain at the defaults' tree shapes (N, C, D) on the
 # 64 timed games, with short playouts so that the plain path stays cheap
-TREE_DEEP = {"NaiveMCTS": dict(n_playouts=10, playout_len=4),
-             "UCT": dict(n_playouts=9, playout_len=4)}
+TREE_DEEP = {"NaiveMCTS": dict(n_playouts=6, playout_len=4),
+             "UCT": dict(n_playouts=5, playout_len=4)}
 TREE_ITERS = 64          # ... whose n_playouts (treesearch.py:137, :620)
 TREE_SNAPSHOT_EVERY = 5  # phase 4: every 5th node-array update kept
 SNAP_NODES = 6           # ... of searches whose trees fill (nnodes == N)
@@ -283,15 +313,15 @@ MM_REDUCED = {           # phase 12 (and 4): kernel vs plain, 16 games
     "IDRTMinimaxRandomized": dict(k_moves=4, repeats=4, lookahead=12,
                                   stack_cap=6, node_budget=24),
     "SampledABCD": dict(k_moves=4, playout_len=8)}
-MM_GAME_CYCLES = 8       # phase 12: ABCD (reduced) vs WorkerRush, 16 games
+MM_GAME_CYCLES = 4       # phase 12: ABCD (reduced) vs WorkerRush, 16 games
 # phase 12: kernel vs plain on the 64 timed games at the defaults' stack
 # shapes (ABCD S=5, RTMinimax S=12, IDRTMinimaxRandomized 4096 lanes S=11,
 # SampledABCD 8 x 8 candidates), with short budgets and playouts so that
 # the plain path stays cheap
-MM_DEEP = {"ABCD": dict(max_depth=4, playout_len=8, node_budget=48),
-           "RTMinimax": dict(lookahead=50, stack_cap=12, node_budget=48),
+MM_DEEP = {"ABCD": dict(max_depth=4, playout_len=8, node_budget=32),
+           "RTMinimax": dict(lookahead=50, stack_cap=12, node_budget=32),
            "IDRTMinimaxRandomized": dict(k_moves=8, repeats=8, lookahead=25,
-                                         stack_cap=10, node_budget=48),
+                                         stack_cap=10, node_budget=32),
            "SampledABCD": dict(k_moves=8, playout_len=8)}
 # phase 12: the profiled decision (device busy share) is the timed one,
 # but ABCD's at this budget (its trips are alike; 512 would trace ~40,000
@@ -311,7 +341,7 @@ MM_KERNELS = {"ABCD": DFS_KERNELS + ("rush",),
 # the partially observable path (K11a-c)
 PO_TICKS = 128           # phase 3: plain PO ticks (1024 envs)
 PO_RECORD_EVERY = 16     # ... whose inputs are kept every 16th tick
-PO_MAIN_TICKS = 256      # phase 13: compared PO ticks
+PO_MAIN_TICKS = 96       # phase 13: compared PO ticks
 PO_TIME_TICKS = 200      # phase 13: timed window
 PO_PROFILE_TICKS = 20    # phase 13: profiled window
 # phase 13: launches per PO step (random_bot's actor for both players)
@@ -325,11 +355,18 @@ PO_RR_BOTS = ("POWorkerRush", "POLightRush", "POHeavyRush", "PORangedRush",
               "WorkerRush")
 PO_RR_GAMES = 8          # per ordered pair: 20 pairs x 8 = 160 lanes
 # phase 13: kernel next to plain; the plain PO rushes' pool takes ~0.66 s
-# a frame on the card's host, so the check stops at 150 cycles
-PO_RR_CHECK_CYCLES = 150
+# a frame on the card's host, so the check stops at 24 cycles
+PO_RR_CHECK_CYCLES = 24
 PO_RR_CYCLES = 2000      # phase 13: timed
 PO_RR_KERNELS = ("decode", "issue", "po_state", "cycle", "rush",
                  "event_jump")
+# the stateful bots (K13, K12g)
+BEL_OPEN = 240           # phase 14: PO rush ticks before the memories
+BEL_TICKS = 200          # ... then memories kernel vs plain for 200 ticks
+BS3_PAIRS = 3            # phase 14: BS3_NaiveMCTS, NaiveMCTS decisions in turn
+CONT_FRAMES = 4          # phase 14: consecutive ContinuingNaiveMCTS frames
+REROOT_N = 4             # ... mcts_reroot timed on copies of 64 trees
+STATEFUL_GAME_CYCLES = 4  # phase 14: the stateful loop kernel vs plain
 
 
 def smi_line() -> str:
@@ -588,6 +625,41 @@ def minimax_decision(env, MM, name, kw, state, seed, player=0):
     return out[-1][0], [o[2] for o in out], [o[1] for o in out]
 
 
+def mem_tensors(m):
+    """A believe memory's planes and seen types."""
+    return [m.b_utype, m.b_hp, m.b_uid, m.seen_type]
+
+
+def mem_pairs(k, p):
+    """[(label, kernel tensor, plain tensor)] of two believe memories."""
+    from microrts_tpu_torch.bots.believestate import BelieveMem
+    return ([(f, getattr(k, f), getattr(p, f)) for f in BelieveMem.PLANES]
+            + [(f"prev.{f}", a, b) for f, a, b in state_pairs(k.prev,
+                                                               p.prev)])
+
+
+def reroot_bytes(before, after, HW):
+    """The bytes a re-root of ``before`` into ``after`` must move: the 13
+    match fields of every valid row read, each row a game keeps read once,
+    and the whole re-rooted tree (every row, the fresh ones with the real
+    state) written once."""
+    import torch
+    from microrts_tpu_torch.engine.types import FIELD_DTYPES
+    B, n1 = before.nplayer.shape
+    st = before.states
+    match_b = HW * sum(getattr(st, f).element_size() for f in (
+        "utype", "owner", "hp", "carried", "busy", "atype", "aparam", "atx",
+        "aty", "aptype", "aticks")) + 12
+    row_b = sum(getattr(st, f)[0].numel() * getattr(st, f).element_size()
+                for f in FIELD_DTYPES) + sum(
+        getattr(before, f)[0, 0].numel() * getattr(before, f).element_size()
+        for f in ("nplayer", "nterm", "ndepth", "nacc", "nvis", "tacc",
+                  "tvis", "children", "carms", "nchild"))
+    kept = torch.where(after.nvis[:, 0] > 0, after.nnodes, 0)
+    return (int(before.nnodes.sum()) * match_b + int(kept.sum()) * row_b
+            + B * n1 * row_b)
+
+
 def random_claims(gen, s, cfg, cells):
     """Candidates for the units of ``s`` in ``cells`` (bool [B, H, W]):
     most of them claims (a move, or a produce of a type the unit makes)
@@ -650,6 +722,7 @@ def main() -> int:
     from microrts_tpu_torch.models.gridnet_policy import (
         ActionSpace, GridnetPolicy, action_logprob_plain, greedy_action_plain,
         gumbel_noise, sample_action_plain)
+    from microrts_tpu_torch.bots import believestate as BS
     from microrts_tpu_torch.bots import minimax as MM
     from microrts_tpu_torch.bots import treesearch as TS
     from microrts_tpu_torch.bots.search import monte_carlo_bot
@@ -1288,6 +1361,77 @@ def main() -> int:
           f"{len(fog_inputs)} records x 3 player views (enemy units "
           f"{fog_seen}), decode with a view on {len(po_records)} x 2, equal "
           f"to plain ({time.perf_counter() - t1:.1f} s)", flush=True)
+    # K13: believe_update (init, update and the sampled world) of the
+    # three levels for both observers along the PO records (memories made
+    # at the first, the seen types cleared in half the lanes so that
+    # producers are inferred), kernel vs plain
+    t1 = time.perf_counter()
+    echo = S.Opponent(lambda w, q, n: w)
+    bel_rules = dict.fromkeys(BS.RULES, 0)
+    for level in (1, 2, 3):
+        for p in (0, 1):
+            kb = BS.believe_state_bot(kenv, echo, level=level)
+            pb = BS.believe_state_bot(penv, echo, level=level)
+            km, pm = kb.init(po_records[0]["s"], p), pb.init(
+                po_records[0]["s"], p)
+            errs["believe_update"] = max(errs["believe_update"],
+                                         expect_equal("believe init",
+                                                      mem_pairs(km, pm)))
+            km.seen_type[B // 2:] = False
+            pm.seen_type[B // 2:] = False
+            for r in po_records[1:]:
+                km, kwld = kb.update(r["s"], km, p)
+                pm, pwld = pb.update(r["s"], pm, p, bel_rules)
+                errs["believe_update"] = max(
+                    errs["believe_update"], expect_equal(
+                        f"believe_update level {level} p{p}",
+                        mem_pairs(km, pm) + state_pairs(kwld, pwld)))
+    if min(bel_rules[n] for n in ("remembered", "forgotten_by_uid",
+                                  "inferred", "relocated",
+                                  "forgotten")) == 0:
+        raise AssertionError(f"the believe inputs miss a rule: {bel_rules}")
+    # K12g: mcts_reroot on the trees of a reduced ContinuingNaiveMCTS (the
+    # checks' budget) of the 16 rush games after one decision, at the
+    # state after the real step (WorkerRush's reply, the fast-forward),
+    # at a child's and a grandchild's node state (hits), at a state no
+    # node holds, and with a third of the lanes left out
+    cb = TS.naive_mcts_continuing(penv, **TREE_CHECK)
+    g = torch.Generator(device=dev)
+    g.manual_seed(33)
+    ctree = cb.init(tree_state, 0)
+    cact, ctree = cb.step(tree_state, ctree, 0, cb.draw(g, TREE_GAMES))
+    s_real = penv.step(tree_state, cact,
+                       make_bot("WorkerRush", penv)(tree_state, 1))[0]
+    s_real = PO.fast_forward(penv, s_real, peng.gameover(s_real))[0]
+    tb = torch.arange(TREE_GAMES, device=dev)
+    child = ctree.children[tb, 0, 0].clamp(min=0)
+    grand = ctree.children[tb, child, 0]
+    grand = torch.where(grand >= 0, grand, child)
+    s_miss = s_real.clone()
+    s_miss.resources[:, 0] += 37
+    reroot_cases = dict(hit=0, miss=0, left_out=0)
+    D_CHECK = TREE_CHECK["max_depth"]
+    for st, lv in ((s_real, None), (TS.node_states(ctree, child), None),
+                   (TS.node_states(ctree, grand), tb % 3 != 0),
+                   (s_miss, None)):
+        kt, pt = clone_tree(ctree), clone_tree(ctree)
+        TS.mcts_reroot(kenv, kt, st, 0, D_CHECK, lv)
+        TS.mcts_reroot(penv, pt, st, 0, D_CHECK, lv)
+        errs["mcts_reroot"] = max(errs["mcts_reroot"], expect_equal(
+            "mcts_reroot", tree_pairs(kt, pt)))
+        on = torch.ones_like(tb, dtype=torch.bool) if lv is None else lv
+        reroot_cases["hit"] += int((on & (pt.nvis[:, 0] > 0)).sum())
+        reroot_cases["miss"] += int((on & (pt.nvis[:, 0] == 0)).sum())
+        reroot_cases["left_out"] += int((~on).sum())
+    if min(reroot_cases.values()) == 0:
+        raise AssertionError(f"the re-root inputs miss a case: "
+                             f"{reroot_cases}")
+    torch.cuda.synchronize()
+    print(f"    believe_update (levels 1-3, both observers, init, update and "
+          f"the world) along {len(po_records)} PO records (rules "
+          f"{bel_rules}), mcts_reroot on {TREE_GAMES} trees after a real "
+          f"step (lanes {reroot_cases}), equal to plain "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
     print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
           f"(max |diff| {errs})", flush=True)
 
@@ -1558,6 +1702,31 @@ def main() -> int:
         nbytes(*[getattr(po_s, f) for f in ("utype", "owner", "hp",
                                             "carried", "busy", "atype",
                                             "terrain")], kobs_po))
+    # believe_update (BS3, player 0, the last PO record, memories of the
+    # one before): the view's utype, owner, hp and uid, the terrain and
+    # the visibility, the previous view's nine planes the rules read and
+    # the memory in; the memory and the world's four planes out
+    bb = BS.believe_state_bot(kenv, echo, level=3)
+    pbb = BS.believe_state_bot(penv, echo, level=3)
+    bs_prev, bs_now = po_records[-2]["s"], po_records[-1]["s"]
+    bmem = bb.init(bs_prev, 0)
+    bview, bvis = KN.PO_STATE(cfg, bs_now, 0)
+    bsp = BS.spiral_offsets(6)
+    bprod = BS.producers(cfg)
+    bout, bworld = KN.BELIEVE(cfg, 3, bsp, bprod, bs_now, bview, bvis, 0,
+                              bmem)
+    timing["believe_update"] = (
+        lambda: KN.BELIEVE(cfg, 3, bsp, bprod, bs_now, bview, bvis, 0,
+                           bmem),
+        lambda: (lambda m: (m, BS.sample_world_plain(bs_now, bview, m, 0)))(
+            BS.believe_update_plain(bmem, bs_now, bview, bvis, 0, cfg, 3,
+                                    bsp)),
+        nbytes(bs_now.terrain, bvis, *[getattr(bview, f) for f in (
+            "utype", "owner", "hp", "uid")],
+            *[getattr(bmem.prev, f) for f in (
+                "utype", "owner", "hp", "uid", "busy", "atype", "aparam",
+                "atx", "aty")],
+            *mem_tensors(bmem), *bout.values(), *bworld.values()))
     del kview, kvis, kobs_po, iout
     assert A == lg.shape[-1]
     times = {}
@@ -1606,7 +1775,7 @@ def main() -> int:
                 policy_logprob_bwd=0, rush=0, event_jump=0, evaluate=0,
                 arm_sample=0, arms_to_action=0, mcts_descend=0,
                 mcts_backprop=0, enum_next=0, minimax_step=0, issue=0,
-                po_state=0, obs_po=0)
+                po_state=0, obs_po=0, mcts_reroot=0, believe_update=0)
     if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
@@ -1988,7 +2157,7 @@ def main() -> int:
           f"winners, table; {lane_ticks(ks)} game ticks); launches "
           f"{rr_check_counts} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
-    # the round robin's 100 cycles end no game: finished games (winners,
+    # the round robin's 40 cycles end no game: finished games (winners,
     # frozen lanes) are held in a pairing that ends early, capped a little
     # after WorkerRush's first wins
     t1 = time.perf_counter()
@@ -2135,7 +2304,7 @@ def main() -> int:
 
     # ---- [11] tree search: NaiveMCTS and UCT decisions of 16 recorded
     # rush games at a reduced budget and 16 NaiveMCTS-vs-WorkerRush games
-    # to 16 cycles (play_matches), kernel vs plain with the same draws;
+    # to 4 cycles (play_matches), kernel vs plain with the same draws;
     # then, on 64 games, a decision of each at the defaults' tree shapes
     # with short playouts, kernel vs plain, and one at the JAX defaults,
     # timed
@@ -2235,7 +2404,7 @@ def main() -> int:
 
     # ---- [12] minimax: one decision of each of the six bots on the 16
     # recorded rush games at reduced budgets, kernel vs plain with the
-    # same draws; 16 ABCD-vs-WorkerRush games to 8 cycles; then one
+    # same draws; 16 ABCD-vs-WorkerRush games to 4 cycles; then one
     # decision of the 64 timed games at the JAX defaults, timed
     t0 = time.perf_counter()
     mm_phase = {}
@@ -2540,7 +2709,269 @@ def main() -> int:
     print(f"    [13] took {time.perf_counter() - t0:.1f} s", flush=True)
     del ks, ps, pos_
 
-    # ---- [14] results
+    # ---- [14] the stateful bots: believe memories along a PO rush run
+    # (kernel vs plain), warm decisions of BS3_NaiveMCTS and of
+    # ContinuingNaiveMCTS over consecutive frames at the JAX defaults
+    # (timed), the stateful match loop kernel vs plain
+    t0 = time.perf_counter()
+    gen.manual_seed(14)
+    # the rushes that march on the enemy (the PO rushes stay home: their
+    # round robin is all draws), on the PO env
+    kpr = [make_bot(n, kpo) for n in ("WorkerRush", "LightRush")]
+    kpbot = random_bot(kpo, BIAS)
+    st = kpo.reset(B)
+    opening = (RUSH_OPEN * (torch.arange(B, device=dev) % 32))[
+        :, None, None, None]
+    for t in range(BEL_OPEN):
+        u0, u1 = uniforms()
+        a0 = torch.where(t < opening, kpbot(st, 0, u0), kpr[0](st, 0))
+        a1 = torch.where(t < opening, kpbot(st, 1, u1), kpr[1](st, 1))
+        st = kpo.step(st, a0, a1)[0]
+    variants = [(lv, p) for lv in (1, 2, 3) for p in (0, 1)]
+    bots = {v: [BS.believe_state_bot(e, echo, level=v[0])
+                for e in (kenv, penv)] for v in variants}
+    mems = {v: [b.init(st, v[1]) for b in bots[v]] for v in variants}
+    for v in variants:
+        for m in mems[v]:
+            m.seen_type[B // 2:] = False
+    rules = {v: dict.fromkeys(BS.RULES, 0) for v in variants}
+    KN.reset_counts()
+    for t in range(BEL_TICKS):
+        for v in variants:
+            (kb, pb), (km, pm) = bots[v], mems[v]
+            km, kwld = kb.update(st, km, v[1])
+            pm, pwld = pb.update(st, pm, v[1], rules[v])
+            expect_equal(f"believe memory level {v[0]} p{v[1]} tick {t}",
+                         mem_pairs(km, pm) + state_pairs(kwld, pwld))
+            mems[v] = [km, pm]
+        a0, a1 = kpr[0](st, 0), kpr[1](st, 1)
+        st = kpo.step(st, a0, a1)[0]
+    bel_counts = KN.counts()
+    want_rules = {1: ("forgotten",),
+                  2: ("remembered", "moved_to_fog", "forgotten_by_uid",
+                      "forgotten"),
+                  3: ("remembered", "moved_to_fog", "forgotten_by_uid",
+                      "inferred", "relocated", "dropped")}
+    for lv in (1, 2, 3):
+        fired = {n: rules[(lv, 0)][n] + rules[(lv, 1)][n]
+                 for n in want_rules[lv]}
+        if min(fired.values()) == 0:
+            raise AssertionError(f"believe level {lv}: a rule never fired "
+                                 f"for either observer: {fired}")
+    if bel_counts["believe_update"] != BEL_TICKS * len(variants):
+        raise AssertionError(f"believe launches {bel_counts}")
+    print(f"[14] believe memories: {B} WorkerRush-vs-LightRush games on the "
+          f"PO env, "
+          f"memories made after {BEL_OPEN} ticks (seen types cleared in "
+          f"half the lanes), {BEL_TICKS} ticks kernel equal to plain "
+          f"(memories, worlds) for levels and observers {variants}; rule "
+          f"cells {[(v, {n: c for n, c in rules[v].items() if c}) for v in variants]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del bots, mems
+
+    # timed decisions at the JAX defaults on the 64 recorded games
+    seen_reroot = []
+    real_reroot = TS.mcts_reroot
+
+    def watched_reroot(env, tree, state, maxp, D, live=None):
+        """The re-root, then (the games whose root kept its visits: a
+        hit, the nodes kept)."""
+        real_reroot(env, tree, state, maxp, D, live)
+        seen_reroot.append((tree.nvis[:, 0] > 0, tree.nnodes.clone()))
+    stateful_counts = {}
+    bs3 = make_bot("BS3_NaiveMCTS", kenv)
+    nm = make_bot("NaiveMCTS", kenv)
+    g = torch.Generator(device=dev)
+    g.manual_seed(61)
+    bmem = bs3.init(big, 0)
+    bs3.step(big, bmem, 0, bs3.draw(g, TREE_TIME_GAMES))    # warm
+    nz = bs3.draw(g, TREE_TIME_GAMES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    # BS3_NaiveMCTS and NaiveMCTS decisions in turn on the same games and
+    # noise: one warm decision's time swings by tens of percent between
+    # runs, so the ratio is read from medians of pairs in one run
+    bs3_secs, nm_secs = [], []
+    for i in range(BS3_PAIRS):
+        KN.reset_counts()
+        t1 = time.perf_counter()
+        act, bmem2 = bs3.step(big, bmem, 0, nz)
+        torch.cuda.synchronize()
+        bs3_secs.append(time.perf_counter() - t1)
+        tc = KN.counts()
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        if (tc["believe_update"] != 1 or tc["po_state"] != 1
+                or any(tc[n] == 0 for n in TREE_KERNELS)
+                or any(tc[n] for n in tc if n not in TREE_KERNELS
+                       + ("believe_update", "po_state"))):
+            raise AssertionError(f"a BS3_NaiveMCTS decision launched {tc}")
+        if act.shape != (TREE_TIME_GAMES, H, W, 7) or not bool(
+                (act[..., 0] > 0).any()):
+            raise AssertionError("BS3_NaiveMCTS: no unit acts in the "
+                                 "decision")
+        t1 = time.perf_counter()
+        nm(big, 0, nz)
+        torch.cuda.synchronize()
+        nm_secs.append(time.perf_counter() - t1)
+    stateful_counts["BS3"] = tc
+    sec, nm_sec = statistics.median(bs3_secs), statistics.median(nm_secs)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        bs3.step(big, bmem, 0, nz)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t1) * 1e6
+    busy, kern = device_busy(prof)
+    print(f"    BS3_NaiveMCTS at the JAX defaults: {BS3_PAIRS} warm "
+          f"decisions of {TREE_TIME_GAMES} games, each followed by a "
+          f"NaiveMCTS decision on the same games: seconds BS3 "
+          f"{[round(x, 3) for x in bs3_secs]}, NaiveMCTS "
+          f"{[round(x, 3) for x in nm_secs]}; game-decisions/s/card "
+          f"(median) BS3 {TREE_TIME_GAMES / sec:.2f}, NaiveMCTS "
+          f"{TREE_TIME_GAMES / nm_sec:.2f}, BS3/NaiveMCTS rate "
+          f"{nm_sec / sec:.3f} (pairs "
+          f"{[round(n / b, 3) for b, n in zip(bs3_secs, nm_secs)]}); "
+          f"{sum(tc.values())} launches "
+          f"{ {n: c for n, c in tc.items() if c} }; peak device memory "
+          f"{peak:.2f} GiB ({peak - held:.2f} GiB above what the script held "
+          f"before); device busy {100 * busy / window:.1f}% of a profiled "
+          f"decision ({busy:.0f} of {window:.0f} us); {kind}, {smi}",
+          flush=True)
+    del prof, kern, bmem, bmem2
+
+    cont = make_bot("ContinuingNaiveMCTS", kenv)
+    krush = make_bot("WorkerRush", kenv)
+    cmem = cont.init(big, 0)
+    cs = big.clone()
+    cdone = torch.zeros(TREE_TIME_GAMES, dtype=torch.bool, device=dev)
+    TS.mcts_reroot = watched_reroot
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    frame_secs, frame_counts, hit_share, carried = [], [], [], []
+    try:
+        for frame in range(CONT_FRAMES + 1):
+            nz = cont.draw(g, TREE_TIME_GAMES)
+            if frame == CONT_FRAMES:
+                # the decisions' peak, before the copies below
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                # the re-root alone, timed on copies of this frame's trees
+                rr_state = cs
+                copies = [clone_tree(cmem) for _ in range(2 * REROOT_N + 1)]
+                pcopies = [clone_tree(cmem) for _ in range(2 * 1 + 1)]
+                kit, pit = iter(copies), iter(pcopies)
+                D_DEF = cont.base.bot.dims[2]
+                to_move = torch.where(PO.can_act(cs, 0), 0, 1).int()
+                term = kenv.engine.gameover(cs)
+                rr_kms = cuda_ms(lambda: KN.REROOT(
+                    cfg, next(kit), rr_state, to_move, term, D_DEF), n=REROOT_N,
+                    warm=1)[0]
+                rr_pms = cuda_ms(lambda: TS.mcts_reroot_plain(
+                    next(pit), rr_state, to_move, term, D_DEF), n=1,
+                    warm=1)[0]
+                # the kernel against the plain re-root at these shapes:
+                # whole trees, row N included
+                after = clone_tree(cmem)
+                KN.REROOT(cfg, after, rr_state, to_move, term, D_DEF)
+                errs["mcts_reroot"] = max(errs["mcts_reroot"], expect_equal(
+                    "mcts_reroot at the JAX defaults",
+                    tree_pairs(after, pcopies[-1])))
+                rr_kept = int(torch.where(after.nvis[:, 0] > 0, after.nnodes,
+                                          0).max())
+                if rr_kept <= 16:
+                    raise AssertionError(
+                        f"mcts_reroot at the JAX defaults: no game keeps "
+                        f"more than 16 rows ({rr_kept})")
+                rr_bytes = reroot_bytes(cmem, after, H * W)
+                del copies, pcopies, after
+                # the profiled decision
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    cont.step(cs, cmem, 0, nz)
+                    torch.cuda.synchronize()
+                    window = (time.perf_counter() - t1) * 1e6
+                cbusy, kern = device_busy(prof)
+                del prof, kern
+                break
+            KN.reset_counts()
+            t1 = time.perf_counter()
+            act, cmem = cont.step(cs, cmem, 0, nz)
+            torch.cuda.synchronize()
+            frame_secs.append(time.perf_counter() - t1)
+            frame_counts.append(KN.counts())
+            hit, nn = seen_reroot[-1]
+            hit_share.append(float(hit.float().mean()))
+            carried.append((float(torch.where(hit, nn, 0).float().mean()),
+                            int(nn.max())))
+            s2 = kenv.step(cs, act, krush(cs, 1))[0]
+            cs, cdone = PO.fast_forward(kenv, s2, cdone)
+    finally:
+        TS.mcts_reroot = real_reroot
+    for fc in frame_counts:
+        if (fc["mcts_reroot"] != 1 or any(fc[n] == 0 for n in TREE_KERNELS)
+                or any(fc[n] for n in fc if n not in TREE_KERNELS
+                       + ("mcts_reroot",))):
+            raise AssertionError(f"a ContinuingNaiveMCTS decision launched "
+                                 f"{fc}")
+    csec = sum(frame_secs[1:]) / len(frame_secs[1:])
+    stateful_counts["Continuing"] = frame_counts[-1]
+    times["mcts_reroot"] = (rr_kms, rr_pms, rr_bytes / HBM_BYTES_PER_S * 1e3,
+                            rr_bytes, "bytes")
+    print(f"    ContinuingNaiveMCTS at the JAX defaults vs WorkerRush, "
+          f"{TREE_TIME_GAMES} games, {CONT_FRAMES} consecutive decisions "
+          f"(the first on fresh trees): seconds "
+          f"{[round(x, 3) for x in frame_secs]}, game-decisions/s/card over "
+          f"the re-rooted ones {TREE_TIME_GAMES / csec:.2f}; re-root hit "
+          f"share {[round(x, 3) for x in hit_share]}, nodes carried (mean "
+          f"over hits, max) {carried}; launches of the last "
+          f"{ {n: c for n, c in frame_counts[-1].items() if c} }; peak "
+          f"device memory of the decisions {peak:.2f} GiB ({peak - held:.2f} "
+          f"GiB above what the script held before: one {TREE_TIME_GAMES}-game "
+          f"tree is "
+          f"{nbytes(cmem.tacc, cmem.tvis) / 2**30:.2f} GiB of tacc/tvis); "
+          f"device busy {100 * cbusy / window:.1f}% of a profiled decision "
+          f"({cbusy:.0f} of {window:.0f} us); mcts_reroot of the last "
+          f"frame's trees equal to plain (whole trees, a game keeps up to "
+          f"{rr_kept} rows); mcts_reroot alone "
+          f"{rr_kms * 1e3:.2f} us (plain {rr_pms * 1e3:.2f} us), bound "
+          f"{rr_bytes / HBM_BYTES_PER_S * 1e6:.2f} us by bytes "
+          f"({rr_bytes / 1e6:.1f} MB); {kind}, {smi}", flush=True)
+    del cmem, cs
+
+    # the stateful match loop, kernel next to plain
+    t1 = time.perf_counter()
+    loop_counts = {}
+    for name, opp in (("BS3_NaiveMCTS", "POWorkerRush"),
+                      ("ContinuingNaiveMCTS", "WorkerRush")):
+        out = []
+        for env in (kenv, penv):
+            bot0 = (BS.believe_state_bot(env, TS.naive_mcts_bot(
+                env, **TREE_GAME)) if name == "BS3_NaiveMCTS"
+                else TS.naive_mcts_continuing(env, **TREE_GAME))
+            KN.reset_counts()
+            out.append(BS.play_matches_stateful(
+                env, bot0, BS.stateless(make_bot(opp, env)), TREE_GAMES,
+                STATEFUL_GAME_CYCLES, seed=37) + (KN.counts(),))
+        (kw_, ks, kf, kc), (pw, ps, pf, pc) = out
+        expect_equal(f"{name} vs {opp} (play_matches_stateful)",
+                     state_pairs(ks, ps) + [("winners", kw_, pw)])
+        need = ("believe_update",) if name == "BS3_NaiveMCTS" else (
+            "mcts_reroot",)
+        if kf != pf or any(kc[n] == 0 for n in need) or any(pc.values()):
+            raise AssertionError(f"{name}: frames {kf} / {pf}, launches "
+                                 f"{kc}, plain {pc}")
+        loop_counts[name] = kc
+        print(f"    {name} ({TREE_GAME}) vs {opp} (play_matches_stateful): "
+              f"{TREE_GAMES} games to {STATEFUL_GAME_CYCLES} cycles ({kf} "
+              f"frames) identical to the plain path; launches "
+              f"{ {n: c for n, c in kc.items() if c} } "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    print(f"    [14] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- [15] results
     kernels = []
     tree_k = ("arm_sample", "arms_to_action", "mcts_descend",
               "mcts_backprop")
@@ -2552,6 +2983,10 @@ def main() -> int:
                     if k.name in ("enum_next", "minimax_step")
                     else po_counts[k.name]
                     if k.name in ("issue", "po_state", "obs_po")
+                    else stateful_counts["Continuing"][k.name]
+                    if k.name == "mcts_reroot"
+                    else stateful_counts["BS3"][k.name]
+                    if k.name == "believe_update"
                     else mc_counts[k.name] if new else upd_counts[k.name])
         by_phase = {"5": counts[k.name], "6": roll_counts[k.name],
                     "7": upd_counts[k.name], "8": rr_counts[k.name],
@@ -2560,7 +2995,13 @@ def main() -> int:
                     "11 UCT": tree_counts["UCT"][k.name]}
         by_phase.update({f"12 {n}": c[k.name] for n, c in mm_counts.items()})
         by_phase.update({"13 PO step": po_counts[k.name],
-                         "13 PO round robin": po_rr_counts[k.name]})
+                         "13 PO round robin": po_rr_counts[k.name],
+                         "14 believe memories": bel_counts[k.name],
+                         "14 BS3_NaiveMCTS": stateful_counts["BS3"][k.name],
+                         "14 ContinuingNaiveMCTS":
+                             stateful_counts["Continuing"][k.name]})
+        by_phase.update({f"14 {n} games": c[k.name]
+                         for n, c in loop_counts.items()})
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
             source=k.source, replaces=k.replaces, launches=launches,

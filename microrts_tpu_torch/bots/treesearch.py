@@ -26,9 +26,15 @@ Randomness enters as tensors, one per use in JAX's key tree, drawn on
 demand (``MCTSNoise``, ``UCTTreeNoise``): a decision's Gumbel noise at
 the JAX defaults would be gigabytes.
 
+``search`` takes a per-game iteration count (int32 ``[B]``): a game past
+its count is not in the walk's ``live`` lanes, and the descent, the
+propagation and the playout leave its tree as it is.
+``naive_mcts_continuing`` (ContinuingNaiveMCTS) keeps each game's tree
+across decisions and re-roots it in place at the node that matches the
+real state (``mcts_reroot``, K12g).
+
 Not ported yet: ``prior_fn`` (InformedNaiveMCTS, which needs the learned
-models) and ``naive_mcts_continuing`` (tree reuse, ``_reroot``, with the
-believe-state game loop).
+models).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from ..ops import arms as AR
 from ..ops.arms import (ArmSpace, arm_sample, arm_space, arms_to_action,
                         one_hot_arms)
 from ..ops.playout import can_act, fast_forward, make_playout, playout_noise
+from .believestate import StatefulBot
 from .scripted import Opponent
 from .search import _default_eval
 
@@ -217,7 +224,9 @@ class Walk:
     (NaiveMCTS: its arm plane, ``edge`` i8 ``[B, D+2, H, W]``; UCT: the
     candidate slot, i32 ``[B, D+2]``), the path's length, the player to
     move at ``cur``, and the states of ``cur`` and of the leaf (written
-    by the descent)."""
+    by the descent).  ``live`` (bool ``[B]``, or None for every game) are
+    the games this iteration runs: the others' trees and walks stay as
+    they are."""
     cur: torch.Tensor
     found: torch.Tensor
     leaf: torch.Tensor
@@ -227,6 +236,7 @@ class Walk:
     player: torch.Tensor
     st: State
     leaf_st: State
+    live: Optional[torch.Tensor] = None
 
 
 def _stack(state: State, n1: int) -> State:
@@ -234,7 +244,8 @@ def _stack(state: State, n1: int) -> State:
                     for f in FIELD_DTYPES})
 
 
-def _walk(tree, root: State, D: int, edge: torch.Tensor) -> Walk:
+def _walk(tree, root: State, D: int, edge: torch.Tensor,
+          live: Optional[torch.Tensor] = None) -> Walk:
     B, dev = root.batch, root.device
     z = torch.zeros(B, dtype=I32, device=dev)
     return Walk(cur=z.clone(), found=torch.zeros(B, dtype=torch.bool,
@@ -242,7 +253,7 @@ def _walk(tree, root: State, D: int, edge: torch.Tensor) -> Walk:
                 leaf=z.clone(),
                 path=torch.full((B, D + 2), -1, dtype=I32, device=dev),
                 edge=edge, plen=z.clone(), player=tree.nplayer[:, 0].clone(),
-                st=root.clone(), leaf_st=root.clone())
+                st=root.clone(), leaf_st=root.clone(), live=live)
 
 
 # ======================================================================
@@ -267,21 +278,32 @@ def mcts_descend(env: GridnetEnv, tree: NaiveTree, w: Walk,
                            maxp, eps0, eps_g, D)
 
 
-def _write_node(tree, rows, widx, cur, st2, can_max, can_min, done2, maxp):
-    """The expansion's node writes (row ``widx``: N where nothing
-    expands)."""
+def _lanes(w: Walk, rows: torch.Tensor) -> torch.Tensor:
+    """The games whose tree a step may write (``w.live``'s)."""
+    return rows if w.live is None else rows[w.live]
+
+
+def _write_node(tree, sel, widx, cur, st2, can_max, can_min, done2, maxp):
+    """The expansion's node writes of games ``sel`` (row ``widx``: N where
+    nothing expands)."""
     n1 = tree.nplayer.shape[1]
-    flat = (rows * n1 + widx).long()
+    widx, cur = widx[sel], cur[sel]
+    can_max, can_min, done2 = can_max[sel], can_min[sel], done2[sel]
+    flat = (sel * n1 + widx).long()
     for f in FIELD_DTYPES:
-        getattr(tree.states, f)[flat] = getattr(st2, f)
-    depth = tree.ndepth[rows, cur] + 1
-    tree.nplayer[rows, widx] = torch.where(can_max, maxp, 1 - maxp).to(I32)
-    tree.nterm[rows, widx] = done2 | (~can_max & ~can_min)
-    tree.ndepth[rows, widx] = depth
+        getattr(tree.states, f)[flat] = getattr(st2, f)[sel]
+    depth = tree.ndepth[sel, cur] + 1
+    tree.nplayer[sel, widx] = torch.where(can_max, maxp, 1 - maxp).to(I32)
+    tree.nterm[sel, widx] = done2 | (~can_max & ~can_min)
+    tree.ndepth[sel, widx] = depth
 
 
 def _move_on(tree, w: Walk, rows, leaf_now, do_exp, leaf, cur) -> None:
     """The walk's next node, its player and the scratch states."""
+    if w.live is not None:
+        leaf_now = leaf_now & w.live
+        leaf = torch.where(w.live, leaf, w.leaf)
+        cur = torch.where(w.live, cur, w.cur)
     w.leaf_st = w.leaf_st.select(leaf_now & ~do_exp, w.st)
     w.cur = cur
     w.leaf = leaf
@@ -334,20 +356,22 @@ def mcts_descend_plain(tree: NaiveTree, w: Walk, arms, st2, done2, can_max,
     widx = torch.where(do_exp, new_id, N)
     wcur = torch.where(do_exp, cur, N)
     slotc = nch.clamp(0, C - 1)
-    _write_node(tree, rows, widx, cur, st2, can_max, can_min, done2, maxp)
-    tree.children[rows, wcur, slotc] = new_id
-    tree.carms[rows, wcur, slotc] = arms8
-    tree.nchild[rows, wcur] += 1
-    tree.nnodes += do_exp.to(I32)
+    sel = _lanes(w, rows)
+    _write_node(tree, sel, widx, cur, st2, can_max, can_min, done2, maxp)
+    tree.children[sel, wcur[sel], slotc[sel]] = new_id[sel]
+    tree.carms[sel, wcur[sel], slotc[sel]] = arms8[sel]
+    tree.nchild[sel, wcur[sel]] += 1
+    tree.nnodes[sel] += do_exp[sel].to(I32)
 
     # bookkeeping: a path entry on every hop through an edge
     move_g = use_global
     move_m = ~found & ~term & ~use_global & matched
     hop = move_g | move_m | do_exp
     pidx = torch.where(hop, w.plen, D + 1)
-    w.path[rows, pidx] = torch.where(hop, cur, -1)
-    w.edge[rows, pidx] = torch.where(move_g[:, None, None], garms, arms8)
-    w.plen = w.plen + hop.to(I32)
+    w.path[sel, pidx[sel]] = torch.where(hop, cur, -1)[sel]
+    w.edge[sel, pidx[sel]] = torch.where(move_g[:, None, None], garms,
+                                         arms8)[sel]
+    w.plen[sel] += hop[sel].to(I32)
     stop = term | (need_exp & ~room)
     leaf_now = ~found & (stop | do_exp)
     leaf = torch.where(found, w.leaf, torch.where(
@@ -459,22 +483,23 @@ def mcts_backprop(env: GridnetEnv, tree, w: Walk, v: torch.Tensor) -> None:
 def mcts_backprop_plain(sp: ArmSpace, tree, w: Walk, v) -> None:
     B, n1 = tree.nplayer.shape
     N = n1 - 1
-    rows = torch.arange(B, device=v.device)
+    rows = _lanes(w, torch.arange(B, device=v.device))
+    v, leaf, plen = v[rows], w.leaf[rows], w.plen[rows]
     naive = isinstance(tree, NaiveTree)
     if naive:
-        tree.nacc[rows, w.leaf] += v
-    tree.nvis[rows, w.leaf] += 1
+        tree.nacc[rows, leaf] += v
+    tree.nvis[rows, leaf] += 1
     for i in range(w.path.shape[1]):
-        idx = torch.where(i < w.plen, w.path[:, i], N)
+        idx = torch.where(i < plen, w.path[rows, i], N)
         tree.nvis[rows, idx] += 1
         if naive:
             tree.nacc[rows, idx] += v
-            oh = one_hot_arms(sp, w.edge[:, i].to(I32))
+            oh = one_hot_arms(sp, w.edge[rows, i].to(I32))
             tree.tacc[rows, idx] += torch.where(
                 oh, v[:, None, None, None], torch.zeros((), device=v.device))
             tree.tvis[rows, idx] += oh.to(I32)
         else:
-            s = w.edge[:, i].long()
+            s = w.edge[rows, i].long()
             tree.avis[rows, idx, s] += 1
             tree.aacc[rows, idx, s] += v
 
@@ -546,15 +571,22 @@ def naive_mcts_bot(env: GridnetEnv, n_playouts: int = 64,
                                        - np.float32(e[1]))
 
     def search(tree: NaiveTree, maxp: int, t0, noise: MCTSNoise,
-               n_iters: Optional[int] = None) -> NaiveTree:
-        """Select/playout/propagate iterations on ``tree`` in place."""
+               n_iters=None) -> NaiveTree:
+        """Select/playout/propagate iterations on ``tree`` in place:
+        ``n_iters`` of them (default ``n_playouts``), or ``n_iters[b]`` in
+        game ``b`` (int32 ``[B]``)."""
         maxp = int(maxp)
         root = node_states(tree, torch.zeros_like(tree.nnodes))
         B = root.batch
-        for it in range(n_playouts if n_iters is None else n_iters):
+        lanes = n_iters if isinstance(n_iters, torch.Tensor) else None
+        n = (n_playouts if n_iters is None
+             else int(lanes.max()) if lanes is not None else n_iters)
+        for it in range(n):
             e0, el, eg, gw = epsilons(it)
+            live = None if lanes is None else it < lanes
             w = _walk(tree, root, D, torch.full(
-                (B, D + 2, H, W), -1, dtype=torch.int8, device=root.device))
+                (B, D + 2, H, W), -1, dtype=torch.int8, device=root.device),
+                live)
             for d in range(D + 2):
                 sn = noise.step(it, d)
                 mask = env.masks(w.st, w.player)
@@ -567,7 +599,7 @@ def naive_mcts_bot(env: GridnetEnv, n_playouts: int = 64,
                 mcts_descend(env, tree, w, arms, st2, done2,
                              can_act(st2, maxp), can_act(st2, 1 - maxp), sn,
                              maxp, e0, eg, D)
-            v = playout(w.leaf_st, maxp, t0, noise.play(it))
+            v = playout(w.leaf_st, maxp, t0, noise.play(it), live)
             mcts_backprop(env, tree, w, v)
         return tree
 
@@ -596,7 +628,192 @@ def naive_mcts_bot(env: GridnetEnv, n_playouts: int = 64,
     bot.search = search
     bot.best_action = best_action
     bot.dims = (N, C, D)
+    bot.n_playouts = n_playouts
     return Opponent(bot, draw)
+
+
+# ======================================================================
+# tree reuse across moves (ContinuingAI / InterruptibleAI analog)
+
+# the fields that must match for a node's state to BE the real state
+# (treesearch.py:444): the port's states carry no key, and uid, the issue
+# order and the id counters are left out as in the JAX package
+MATCH_FIELDS = ("utype", "owner", "hp", "carried", "busy", "atype",
+                "aparam", "atx", "aty", "aptype", "aticks", "time",
+                "resources")
+
+
+def node_matches(states: State, n1: int, s: State) -> torch.Tensor:
+    """bool ``[B, n1]``: which node states of each game's stack (``n1``
+    rows a game) equal ``s`` in ``MATCH_FIELDS`` (treesearch.py:449)."""
+    B = s.batch
+    ok = None
+    for f in MATCH_FIELDS:
+        a = getattr(states, f)
+        a = a.reshape((B, n1) + a.shape[1:])
+        b = getattr(s, f)[:, None]
+        eq = (a == b).reshape(B, n1, -1).all(-1)
+        ok = eq if ok is None else ok & eq
+    return ok
+
+
+def mcts_reroot(env: GridnetEnv, tree: NaiveTree, state: State, maxp: int,
+                D: int, live: Optional[torch.Tensor] = None) -> None:
+    """Re-root every game's tree in place at the most-visited node whose
+    state matches the real ``state`` (``_reroot``, treesearch.py:507-564):
+    the node and what it reaches over the children lists in ``D + 2``
+    steps are compacted to rows 0.. in index order with their statistics
+    (depths less the node's), the other rows become a fresh tree's, row
+    0's state is ``state`` and its player the one who can act; a game with
+    no match gets a fresh tree.  Games outside ``live`` (bool ``[B]``) are
+    left as they are."""
+    to_move = torch.where(can_act(state, maxp), maxp, 1 - maxp).to(I32)
+    term = env.engine.gameover(state)
+    if env.engine._use_kernel(tree.nvis):
+        KN.REROOT(env.cfg.engine, tree, state, to_move, term, D, live)
+    else:
+        mcts_reroot_plain(tree, state, to_move, term, D, live)
+
+
+def mcts_reroot_plain(tree: NaiveTree, state: State, to_move, term, D,
+                      live=None) -> None:
+    B, n1, C = tree.children.shape
+    N = n1 - 1
+    dev = tree.nvis.device
+    idx = torch.arange(n1, device=dev)[None]
+    valid = idx < tree.nnodes[:, None]
+    match = node_matches(tree.states, n1, state) & valid
+    score = torch.where(match, tree.nvis + 1, 0)
+    m = score.argmax(1)
+    found = match.any(1)
+
+    # reachability from m through the children lists, D + 2 steps
+    slots_ok = torch.arange(C, device=dev) < tree.nchild[..., None]
+    child = torch.where(slots_ok, tree.children, -1)
+    cc = child.clamp(0, N).long()
+    adj = (torch.nn.functional.one_hot(cc, n1).bool()
+           & (child >= 0)[..., None]).any(2)
+    reach = idx == m[:, None]
+    for _ in range(D + 2):
+        reach = reach | (reach[:, :, None] & adj).any(1)
+    reach = reach & valid
+
+    # compact: m -> 0, the other reached rows -> 1.. in index order, the
+    # rest onto N (whose own row N wins, as the last index)
+    r2 = reach & (idx != m[:, None])
+    new_idx = torch.where(idx == m[:, None], 0,
+                          torch.where(r2, r2.cumsum(1), N))
+    flat_cc = cc.flatten(1)
+    remap = torch.where(
+        (child >= 0) & reach.gather(1, flat_cc).reshape(child.shape),
+        new_idx.gather(1, flat_cc).reshape(child.shape), -1)
+    base_depth = tree.ndepth.gather(1, m[:, None])
+    src = torch.full((B, n1), -1, dtype=torch.long, device=dev)
+    src.scatter_(1, torch.where(reach, new_idx, N).long(),
+                 torch.where(reach, idx, -1).expand(B, n1).long())
+    src[:, N] = N
+    take = src >= 0
+    srcc = src.clamp(min=0)
+    apply = found if live is None else found & live
+    fresh = ~found if live is None else ~found & live
+
+    def put(name, arr, fill, row0=None, rowN=None):
+        """tree.<name> := the re-rooted table where found, a fresh one
+        where not, in the games re-rooted."""
+        old = getattr(tree, name)
+        g = arr.gather(1, srcc.reshape((B, n1) + (1,) * (arr.dim() - 2))
+                       .expand_as(arr))
+        t = (take.reshape((B, n1) + (1,) * (arr.dim() - 2)))
+        out = torch.where(t, g, torch.tensor(fill, dtype=old.dtype,
+                                             device=dev))
+        fr = torch.full_like(old, fill)
+        if row0 is not None:
+            out[:, 0] = row0
+            fr[:, 0] = row0
+        if rowN is not None:
+            out[:, N] = rowN
+        lane = (-1,) + (1,) * (old.dim() - 1)
+        old.copy_(torch.where(apply.reshape(lane), out,
+                              torch.where(fresh.reshape(lane), fr, old)))
+
+    put("nplayer", tree.nplayer, 0, row0=to_move)
+    put("nterm", tree.nterm, False, row0=term)
+    put("ndepth", tree.ndepth - base_depth, 0)
+    put("nacc", tree.nacc, 0.0)
+    put("nvis", tree.nvis, 0)
+    put("tacc", tree.tacc, 0.0)
+    put("tvis", tree.tvis, 0)
+    put("children", remap, -1, rowN=-1)
+    put("carms", tree.carms, -1)
+    put("nchild", tree.nchild, 0, rowN=0)
+    nn = torch.where(apply, reach.sum(1, dtype=I32),
+                     torch.where(fresh, 1, tree.nnodes)).to(I32)
+    tree.nnodes.copy_(nn)
+    # the node states: moved rows, the real state in the fresh rows and
+    # in row 0 (row N keeps its own where found)
+    rows = torch.arange(B, device=dev)[:, None] * n1
+    gsrc = torch.where(take & apply[:, None], srcc, -1)
+    gsrc[:, 0] = -1
+    gsrc = torch.where(apply[:, None] | fresh[:, None], gsrc, idx)
+    for f in FIELD_DTYPES:
+        a = getattr(tree.states, f)
+        new = torch.where(
+            (gsrc >= 0).reshape((-1,) + (1,) * (a.dim() - 1)),
+            a[(rows + gsrc.clamp(min=0)).flatten()],
+            getattr(state, f).repeat_interleave(n1, 0))
+        a.copy_(new)
+
+
+def naive_mcts_continuing(env: GridnetEnv, per_frame: Optional[int] = None,
+                          **kw) -> StatefulBot:
+    """NaiveMCTS with tree reuse across consecutive decisions, the
+    ContinuingAI / InterruptibleAI contract (treesearch.py:459-599, as a
+    ``StatefulBot``): each step re-roots the tree it keeps at the node
+    that matches the real state (``mcts_reroot``), searches ``n_playouts``
+    more iterations, and plays the most-visited root child, or nothing
+    on frames where only the opponent can act (the root then holds the
+    opponent's moves, kept for the next re-root).  ``per_frame`` gives the
+    anytime budget: ``clip(per_frame * frames elapsed, per_frame, cap)``
+    iterations in each game, ``cap`` being ``kw``'s ``n_playouts`` or 100,
+    and the memory ``(tree, last decision time)``."""
+    base = naive_mcts_bot(env, **kw)
+    b = base.bot
+    N, C, D = b.dims
+    cap = kw.get("n_playouts", 100)
+
+    def fresh(state: State, maxp: int) -> NaiveTree:
+        t = b.init_tree(state, maxp)
+        t.nplayer[:, 0] = torch.where(can_act(state, maxp), maxp, 1 - maxp)
+        return t
+
+    def init(state: State, player):
+        t = fresh(state, int(player))
+        return t if per_frame is None else (t, state.time.clone())
+
+    def step(state: State, mem, player, noise, live=None):
+        maxp = int(player)
+        tree = mem if per_frame is None else mem[0]
+        mcts_reroot(env, tree, state, maxp, D, live)
+        if per_frame is None:
+            n = None if live is None else torch.where(live, b.n_playouts, 0)
+        else:
+            dt = (state.time - mem[1]).clamp(min=1)
+            n = (dt * per_frame).clamp(per_frame, cap).to(I32)
+            if live is not None:
+                n = torch.where(live, n, 0)
+        b.search(tree, maxp, state.time, noise,
+                 n_iters=None if n is None else n.to(I32))
+        act = b.best_action(tree)
+        act = torch.where(can_act(state, maxp)[:, None, None, None], act, 0)
+        if per_frame is None:
+            return act, tree
+        t = state.time if live is None else torch.where(live, state.time,
+                                                        mem[1])
+        return act, (tree, t.clone())
+
+    bot = StatefulBot(init=init, step=step, draw=base.draw)
+    bot.base = base
+    return bot
 
 
 def uct_unit_actions_bot(env: GridnetEnv, ucb_c: float = 0.05,

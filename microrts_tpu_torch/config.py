@@ -3,7 +3,9 @@
 A copy of ``microrts_tpu.config``'s ``JAVA_AI_ALIASES`` (the reflective
 instantiation analog of GameSettings/Game.java:44-50) and of ``make_bot``
 for the bots the port has.  ``make_bot`` returns a
-``bots.scripted.Opponent``: the bot and the draw of the noise it reads.
+``bots.scripted.Opponent`` (the bot and the draw of the noise it reads),
+or for the stateful bots (BS1/BS2/BS3_NaiveMCTS, ContinuingNaiveMCTS) a
+``bots.believestate.StatefulBot``.
 A name the JAX package knows but the port has not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
@@ -102,8 +104,12 @@ _MINIMAX = dict(
     RTMinimax="rt_minimax_bot", IDRTMinimax="idrt_minimax_bot",
     IDRTMinimaxRandomized="idrt_minimax_randomized_bot")
 MINIMAX_BOTS = tuple(_MINIMAX)
+# the stateful bots (microrts_tpu/config.py:212-225): the believe-state
+# levels around the default NaiveMCTS, and tree reuse
+_BELIEVE = dict(BS1_NaiveMCTS=1, BS2_NaiveMCTS=2, BS3_NaiveMCTS=3)
+STATEFUL_BOTS = tuple(_BELIEVE) + ("ContinuingNaiveMCTS",)
 PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI") + RUSH_BOTS \
-    + PO_BOTS + SEARCH_BOTS + TREE_BOTS + MINIMAX_BOTS
+    + PO_BOTS + SEARCH_BOTS + TREE_BOTS + MINIMAX_BOTS + STATEFUL_BOTS
 
 # names the JAX package has and the port not yet: the ROADMAP.md queue 1
 # item that ports them
@@ -113,13 +119,13 @@ _NOT_PORTED = dict(
     InformedNaiveMCTS="item 11 (learned models)",
     **{n: "item 10 (search bots)" for n in (
         "SCV", "SCVAdaptive", "AHTN", "LSI", "PuppetNoPlan",
-        "PuppetSearchMCTS", "PuppetSearchAB", "BS1_NaiveMCTS",
-        "BS2_NaiveMCTS", "BS3_NaiveMCTS", "PortfolioAI", "PGSAI",
-        "ContinuingNaiveMCTS", "CooperativeAI")})
+        "PuppetSearchMCTS", "PuppetSearchAB", "PortfolioAI", "PGSAI",
+        "CooperativeAI")})
 
 
 def make_bot(name: str, env):
-    """Bot by (Java or short) name, as a ``bots.scripted.Opponent``."""
+    """Bot by (Java or short) name, as a ``bots.scripted.Opponent`` (a
+    ``bots.believestate.StatefulBot`` for ``STATEFUL_BOTS``)."""
     from .bots import scripted as S
 
     name = JAVA_AI_ALIASES.get(name, name)
@@ -143,6 +149,14 @@ def make_bot(name: str, env):
     if name in _MINIMAX:
         from .bots import minimax as MM
         return getattr(MM, _MINIMAX[name])(env)
+    if name in _BELIEVE:
+        from .bots import believestate as BS
+        from .bots import treesearch as TS
+        return BS.believe_state_bot(env, TS.naive_mcts_bot(env),
+                                    level=_BELIEVE[name])
+    if name == "ContinuingNaiveMCTS":
+        from .bots import treesearch as TS
+        return TS.naive_mcts_continuing(env)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name} is not ported yet: ROADMAP.md queue 1 "

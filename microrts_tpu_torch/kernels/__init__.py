@@ -9,8 +9,8 @@ The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
 ``EPILOGUE``, ``SPLICE_OBS``, ``SAMPLE``, ``LOGPROB``, ``LOGPROB_BWD``,
 ``RUSH``, ``EVENT_JUMP``, ``EVALUATE``, ``ARM_SAMPLE``,
 ``ARMS_TO_ACTION``, ``MCTS_DESCEND``, ``MCTS_BACKPROP``, ``ENUM_NEXT``,
-``MINIMAX_STEP``, ``ISSUE``, ``PO_STATE``, ``OBS_PO``) take CUDA tensors
-only: they
+``MINIMAX_STEP``, ``ISSUE``, ``PO_STATE``, ``OBS_PO``, ``REROOT``,
+``BELIEVE``) take CUDA tensors only: they
 check device, dtype, shape and contiguity, allocate the outputs, launch on
 PyTorch's current stream, raise if the launch reports a CUDA error, and
 count their launches in ``.launches``.  The callers in ``engine``,
@@ -40,7 +40,7 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 NAMES = ("actor", "decode", "issue_env", "cycle", "epilogue",
          "splice_obs", "policy_sample", "policy_logprob", "rush", "event",
          "evaluation", "arms", "tree", "enumerate", "minimax", "issue",
-         "fog")
+         "fog", "believe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAXT = 16
@@ -174,6 +174,9 @@ TREE_DTYPES = dict(
     tacc=torch.float32, tvis=torch.int32, acand=torch.int8,
     avis=torch.int32, aacc=torch.float32, achild=torch.int32)
 WALK_FIELDS = ("cur", "found", "leaf", "path", "edge", "plen", "player")
+# the NaiveMCTS tables (bots/treesearch.py NaiveTree)
+NAIVE_FIELDS = ("nplayer", "nterm", "ndepth", "nacc", "nvis", "children",
+                "carms", "nchild", "nnodes", "tacc", "tvis")
 
 
 class _TreeP(ctypes.Structure):
@@ -181,7 +184,31 @@ class _TreeP(ctypes.Structure):
 
 
 class _WalkP(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_void_p) for f in WALK_FIELDS]
+    _fields_ = [(f, ctypes.c_void_p) for f in WALK_FIELDS + ("live",)]
+
+
+class _RerootDims(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("H", "W", "A", "n1", "C", "D")]
+
+
+class _BelDims(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("level", "me", "nsp", "R")] + [
+        ("producer", ctypes.c_int * MAXT)]
+
+
+# a believe memory's planes (bots/believestate.py BelieveMem) and types
+MEM_DTYPES = dict(b_utype=torch.int32, b_hp=torch.int32, b_uid=torch.int32,
+                  seen_type=torch.bool)
+# the sampled world's overlaid planes
+WORLD_FIELDS = ("utype", "owner", "hp", "uid")
+
+
+class _MemP(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in MEM_DTYPES]
+
+
+class _WorldP(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in WORLD_FIELDS]
 
 
 class _StepP(ctypes.Structure):
@@ -267,7 +294,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                           _P, _P, st, st, _P],
             mcts_backprop=[ctypes.POINTER(_TreeDims), _I, _I,
                            ctypes.POINTER(_TreeP), ctypes.POINTER(_WalkP), _P,
-                           _P]),
+                           _P],
+            mcts_reroot=[ctypes.POINTER(_RerootDims), _I,
+                         ctypes.POINTER(_TreeP), st, st, _P, _P, _P, _P]),
         "enumerate": dict(enum_next=[cfg, ctypes.POINTER(_EnumDims), _I, _P,
                                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P]),
@@ -279,6 +308,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "fog": dict(po_state=[cfg, st, _I, _I, _P, st, _P, _P],
                     obs_po=[cfg, st, _I, ctypes.POINTER(_PoSlot),
                             ctypes.POINTER(_PoSlot), _P]),
+        "believe": dict(believe_update=[
+            cfg, ctypes.POINTER(_BelDims), _I, _I, st, st, _P, st,
+            ctypes.POINTER(_MemP), ctypes.POINTER(_MemP),
+            ctypes.POINTER(_WorldP), _P, _P]),
     }[name]
     for entry, argtypes in entries.items():
         fn = getattr(lib, f"{entry}_launch")
@@ -931,6 +964,8 @@ def _tree_p(tree, w, sp=None):
             dt = torch.int8 if naive else torch.int32
             shape = (B, D + 2, H, W) if naive else (B, D + 2)
         wp[f] = _check(f, getattr(w, f), dt, shape, dev)
+    if getattr(w, "live", None) is not None:
+        wp["live"] = _check("live", w.live, torch.bool, (B,), dev)
     dims = _TreeDims(H=H, W=W, T=sp.num_types if sp else 1,
                      Dd=sp.diam if sp else 1,
                      A=tree.tacc.shape[-1] if naive else 0, n1=n1, C=C, D=D)
@@ -1117,6 +1152,111 @@ class _MinimaxStep(Kernel):
                          int(maxp), _stream(dev))
 
 
+class _MctsReroot(Kernel):
+    def __call__(self, cfg: EngineConfig, tree, state: State,
+                 to_move: torch.Tensor, term: torch.Tensor, D: int,
+                 live: Optional[torch.Tensor] = None) -> None:
+        """Re-root every game's NaiveMCTS tree in place at the node that
+        matches ``state`` (``bots.treesearch.mcts_reroot``): ``to_move``
+        int32 ``[B]`` the root's player, ``term`` bool ``[B]`` its game
+        over, ``D`` the tree's max depth, ``live`` bool ``[B]`` (or None)
+        the games re-rooted."""
+        B, n1 = tree.nplayer.shape
+        dev = tree.nplayer.device
+        H, W = cfg.height, cfg.width
+        C, A = tree.children.shape[2], tree.tacc.shape[-1]
+        shapes = dict(nnodes=(B,), children=(B, n1, C),
+                      carms=(B, n1, C, H, W), tacc=(B, n1, H, W, A),
+                      tvis=(B, n1, H, W, A))
+        ptrs = {f: _check(f, getattr(tree, f), TREE_DTYPES[f],
+                          shapes.get(f, (B, n1)), dev)
+                for f in NAIVE_FIELDS}
+        if n1 > 1024:
+            raise ValueError(f"mcts_reroot: at most 1024 rows a game, got {n1}")
+        if tree.states.batch != B * n1 or state.batch != B:
+            raise ValueError("mcts_reroot: state batch mismatch")
+        dims = _RerootDims(H=H, W=W, A=A, n1=n1, C=C, D=int(D))
+        with torch.cuda.device(dev):
+            self._launch(
+                ctypes.byref(dims), B, ctypes.byref(_TreeP(**ptrs)),
+                ctypes.byref(_state_p(tree.states, cfg)[0]),
+                ctypes.byref(_state_p(state, cfg)[0]),
+                _check("to_move", to_move, torch.int32, (B,), dev),
+                _check("term", term, torch.bool, (B,), dev),
+                None if live is None
+                else _check("live", live, torch.bool, (B,), dev),
+                _stream(dev))
+
+
+_SPIRALS: Dict[Tuple[tuple, torch.device], torch.Tensor] = {}
+
+
+class _Believe(Kernel):
+    def __call__(self, cfg: EngineConfig, level: int, spiral, producer,
+                 state: State, view: State, vis: torch.Tensor, player: int,
+                 mem=None):
+        """The believe-state memory planes of observer ``player`` (an int)
+        whose fog-of-war ``view`` and visibility ``vis`` (bool
+        ``[B, H, W]``) of ``state`` the ``po_state`` kernel gave,
+        ``spiral`` the relocation offsets [(dx, dy)], ``producer`` each
+        type's producer type (-1 none).  ``mem`` is the memory before
+        (anything with the ``MEM_DTYPES`` planes and the previous view
+        ``prev``), None for the initial memory.  Returns (the new
+        ``MEM_DTYPES`` planes {name: tensor}, the sampled world's
+        ``WORLD_FIELDS`` planes {name: tensor}, None without ``mem``)."""
+        if level not in (1, 2, 3):
+            raise ValueError(f"believe_update: level {level}")
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W, T = cfg.height, cfg.width, cfg.num_types
+        if H * W > 1024:
+            raise ValueError(f"believe_update: at most 1024 cells, got {H * W}")
+        if len(producer) != T:
+            raise ValueError(f"believe_update: {len(producer)} producers for "
+                             f"{T} types")
+        vp = _state_p(view, cfg)[0]
+        if view.batch != B:
+            raise ValueError("believe_update: view batch mismatch")
+        _check("vis", vis, torch.bool, (B, H, W), dev)
+        plane = (B, H, W)
+
+        def shape(f):
+            return (B, T) if f == "seen_type" else plane
+
+        def mem_p(m):
+            return _MemP(**{f: _check(f, m[f], dt, shape(f), dev)
+                            for f, dt in MEM_DTYPES.items()})
+        out = {f: torch.empty(shape(f), dtype=dt, device=dev)
+               for f, dt in MEM_DTYPES.items()}
+        key = (tuple(spiral), dev)
+        if key not in _SPIRALS:
+            _SPIRALS[key] = torch.tensor(list(spiral) or [(0, 0)],
+                                         dtype=torch.int32,
+                                         device=dev).reshape(-1, 2)
+        dims = _BelDims(level=level, me=int(player), nsp=len(spiral),
+                        R=max(cfg.attack_range))
+        dims.producer[:T] = producer
+        wout = None
+        if mem is None:
+            inp, prev, wp = _MemP(), vp, _WorldP()
+        else:
+            if mem.prev.batch != B:
+                raise ValueError("believe_update: memory batch mismatch")
+            inp = mem_p({f: getattr(mem, f) for f in MEM_DTYPES})
+            prev = _state_p(mem.prev, cfg)[0]
+            wout = {f: torch.empty(plane, dtype=FIELD_DTYPES[f], device=dev)
+                    for f in WORLD_FIELDS}
+            wp = _WorldP(**{f: t.data_ptr() for f, t in wout.items()})
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(dims),
+                         int(mem is None), B, ctypes.byref(sp),
+                         ctypes.byref(vp), vis.data_ptr(), ctypes.byref(prev),
+                         ctypes.byref(inp), ctypes.byref(mem_p(out)),
+                         ctypes.byref(wp), _SPIRALS[key].data_ptr(),
+                         _stream(dev))
+        return out, wout
+
+
 # the unit planes of a fog-of-war view (terrain and the scalars shared)
 _VIEW_OUT = ("utype", "owner", "hp", "carried", "uid", "busy", "atype",
              "aparam", "atx", "aty", "aptype", "aticks", "aorder", "atime")
@@ -1229,10 +1369,17 @@ ISSUE = _Issue("issue", "microrts_tpu/engine/kernel.py:291")
 PO_STATE = _PoState("po_state", "microrts_tpu/engine/fog.py:43", "fog")
 # + gridnet.py:446 (the one-hot of its planes 0-4)
 OBS_PO = _ObsPo("obs_po", "microrts_tpu/engine/fog.py:67", "fog")
+# + treesearch.py:449 (_node_state_matches)
+REROOT = _MctsReroot("mcts_reroot", "microrts_tpu/bots/treesearch.py:507",
+                     "tree")
+# + believestate.py:108 (_targeted_by_attack), :179 (_relocate), :152
+# (init), :325 (sample_world)
+BELIEVE = _Believe("believe_update", "microrts_tpu/bots/believestate.py:215",
+                   "believe")
 KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE,
            LOGPROB, LOGPROB_BWD, RUSH, EVENT_JUMP, EVALUATE, ARM_SAMPLE,
            ARMS_TO_ACTION, MCTS_DESCEND, MCTS_BACKPROP, ENUM_NEXT,
-           MINIMAX_STEP, ISSUE, PO_STATE, OBS_PO)
+           MINIMAX_STEP, ISSUE, PO_STATE, OBS_PO, REROOT, BELIEVE)
 
 
 def reset_counts() -> None:

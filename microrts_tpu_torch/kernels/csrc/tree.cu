@@ -1,5 +1,8 @@
-// mcts_descend and mcts_backprop: the tree-search bots' node-array updates
-// (K12c, K12d).
+// mcts_descend, mcts_backprop and mcts_reroot: the tree-search bots'
+// node-array updates (K12c, K12d, K12g).
+//
+// A walk's optional live flags (a per-game iteration budget) leave the games
+// outside them untouched: their blocks return at once.
 //
 // mcts_descend replaces one step of the JAX package's descent loops:
 // naive_mcts_bot's descend (microrts_tpu/bots/treesearch.py:300-381) and
@@ -48,6 +51,7 @@ struct WalkP {
   int32_t* cur; uint8_t* found; int32_t* leaf; int32_t* path;
   void* edge;  // int8 [B, D+2, H, W] arm planes, or int32 [B, D+2] slots
   int32_t* plen; int32_t* player;
+  const uint8_t* live;  // [B] the games this iteration runs, or null: all
 };
 
 struct StepP {  // one descent step's inputs
@@ -101,6 +105,7 @@ __global__ void descend_kernel(TreeDims dm, int mode, TreeP t, WalkP w,
                                StateP leaf_st) {
   const int HW = dm.H * dm.W, C = dm.C, N = dm.n1 - 1, D2 = dm.D + 2;
   const int b = blockIdx.x;
+  if (w.live && !w.live[b]) return;
   const size_t g0 = (size_t)b * dm.n1;  // row of node 0
   __shared__ int s_mis[MAXC];
   __shared__ int s_cur, s_nch, s_gslot, s_widx, s_wcur, s_slotc, s_pidx,
@@ -240,6 +245,7 @@ __global__ void backprop_kernel(TreeDims dm, int uct, TreeP t, WalkP w,
                                 const float* v) {
   const int HW = dm.H * dm.W, N = dm.n1 - 1, D2 = dm.D + 2, A = dm.A;
   const int b = blockIdx.x;
+  if (w.live && !w.live[b]) return;
   const size_t g0 = (size_t)b * dm.n1;
   const float vb = v[b];
   const int plen = w.plen[b];
@@ -303,5 +309,210 @@ extern "C" int mcts_backprop_launch(const TreeDims* dm, int uct, int batch,
                                     const float* v, void* stream) {
   backprop_kernel<<<batch, block_threads(dm->H * dm->W), 0,
                     (cudaStream_t)stream>>>(*dm, uct, *t, *w, v);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// mcts_reroot (K12g): ContinuingNaiveMCTS's re-root (_reroot,
+// microrts_tpu/bots/treesearch.py:507-564, with _node_state_matches :449),
+// in place on the tree of every game.
+//
+// Bound at 64 games, 16x16, N=96, C=16, A=90: a game's tables are ~17.9 MB
+// (tacc/tvis 184 KB a row).  The re-root reads the node states' 13 match
+// fields, moves the reached rows (read once, written once) and writes the
+// fresh rows: about the tree's bytes once each way when most rows are
+// fresh, ~0.7 ms for 64 games at 3.35 TB/s.
+//
+// Design: one block per game.  (1) Every cell compares its 11 match planes
+// of every valid row with the real state's (a row's flag is set by any
+// cell that differs; thread i compares row i's time and resources); (2)
+// thread 0 takes the most-visited match (nvis + 1, first index on ties);
+// (3) reachability from it over the children lists as D + 2 synchronous
+// steps of a flag set in shared memory (double-buffered, as the JAX
+// einsum steps are); (4) thread 0's prefix sum gives the new indices (the
+// node -> 0, the other reached rows -> 1.. in index order); (5) the
+// reached rows move in increasing index order, one row at a time with the
+// block's threads over its elements: a reached row other than the node is
+// its descendant, so has a larger index and only moves down onto a row
+// already read; (6) the rows past the kept ones become a fresh tree's, row
+// N (the scratch, where JAX's scatter lands every unreached row and its own
+// row wins as the last index) keeps its data with the depth shifted, no
+// children; (7) row 0 takes the real state, the player who can act and the
+// game-over flag.  No match: the whole tree becomes a fresh one.
+
+#define MAXN1 1024
+
+struct RerootDims {
+  int H, W, A, n1, C, D;
+};
+
+__device__ __forceinline__ bool plane_differs(const StateP& s, size_t i,
+                                              const StateP& r, size_t j) {
+  return s.utype[i] != r.utype[j] || s.owner[i] != r.owner[j]
+         || s.hp[i] != r.hp[j] || s.carried[i] != r.carried[j]
+         || s.busy[i] != r.busy[j] || s.atype[i] != r.atype[j]
+         || s.aparam[i] != r.aparam[j] || s.atx[i] != r.atx[j]
+         || s.aty[i] != r.aty[j] || s.aptype[i] != r.aptype[j]
+         || s.aticks[i] != r.aticks[j];
+}
+
+// Row `row` of the game's tables := a fresh tree's (the node state: the
+// real state of game b).
+__device__ void fresh_row(const RerootDims& dm, TreeP t, StateP S,
+                          StateP real, size_t g0, int row, int b) {
+  const int HW = dm.H * dm.W, C = dm.C;
+  const size_t r = g0 + row;
+  if (threadIdx.x == 0) {
+    t.nplayer[r] = 0; t.nterm[r] = 0; t.ndepth[r] = 0; t.nacc[r] = 0.0f;
+    t.nvis[r] = 0; t.nchild[r] = 0;
+    copy_scalars(S, r, real, b);
+  }
+  for (int k = threadIdx.x; k < C; k += blockDim.x) t.children[r * C + k] = -1;
+  for (int i = threadIdx.x; i < C * HW; i += blockDim.x)
+    t.carms[r * C * HW + i] = -1;
+  const size_t na = (size_t)HW * dm.A;
+  for (size_t i = threadIdx.x; i < na; i += blockDim.x) {
+    t.tacc[r * na + i] = 0.0f;
+    t.tvis[r * na + i] = 0;
+  }
+  for (int c = threadIdx.x; c < HW; c += blockDim.x)
+    copy_planes(S, r, real, b, HW, c);
+}
+
+__global__ void reroot_kernel(RerootDims dm, TreeP t, StateP S, StateP real,
+                              const int32_t* to_move, const uint8_t* term,
+                              const uint8_t* live) {
+  const int b = blockIdx.x;
+  if (live && !live[b]) return;
+  const int HW = dm.H * dm.W, C = dm.C, n1 = dm.n1, N = n1 - 1;
+  const size_t g0 = (size_t)b * n1;
+  __shared__ int s_mis[MAXN1], s_new[MAXN1];
+  __shared__ uint8_t s_reach[MAXN1], s_next[MAXN1];
+  __shared__ int s_m, s_found, s_kept, s_base;
+  const int nn = t.nnodes[b];
+
+  // (1) the match of every valid row
+  for (int i = threadIdx.x; i < n1; i += blockDim.x) {
+    const size_t r = g0 + i;
+    s_mis[i] = i >= nn || S.time[r] != real.time[b]
+               || S.resources[2 * r] != real.resources[2 * b]
+               || S.resources[2 * r + 1] != real.resources[2 * b + 1];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < HW; c += blockDim.x)
+    for (int i = 0; i < nn; ++i)
+      if (!s_mis[i] && plane_differs(S, (g0 + i) * HW + c, real,
+                                     (size_t)b * HW + c))
+        s_mis[i] = 1;
+  __syncthreads();
+
+  // (2) the most-visited match (argmax of nvis + 1, first index)
+  if (threadIdx.x == 0) {
+    int m = 0, best = -1, found = 0;
+    for (int i = 0; i < n1; ++i) {
+      const int sc = s_mis[i] ? 0 : t.nvis[g0 + i] + 1;
+      if (!s_mis[i]) found = 1;
+      if (sc > best) { best = sc; m = i; }
+    }
+    s_m = m; s_found = found;
+  }
+  __syncthreads();
+  const int m = s_m;
+
+  if (!s_found) {
+    for (int row = 0; row < n1; ++row) fresh_row(dm, t, S, real, g0, row, b);
+    if (threadIdx.x == 0) t.nnodes[b] = 1;
+  } else {
+    // (3) reachability from m in D + 2 synchronous steps
+    for (int i = threadIdx.x; i < n1; i += blockDim.x) s_reach[i] = i == m;
+    __syncthreads();
+    for (int step = 0; step < dm.D + 2; ++step) {
+      for (int i = threadIdx.x; i < n1; i += blockDim.x) s_next[i] = s_reach[i];
+      __syncthreads();
+      for (int i = threadIdx.x; i < n1; i += blockDim.x) {
+        if (!s_reach[i]) continue;
+        const int nch = t.nchild[g0 + i];
+        for (int k = 0; k < C && k < nch; ++k) {
+          const int ch = t.children[(g0 + i) * C + k];
+          if (ch >= 0) s_next[clampi(ch, 0, N)] = 1;
+        }
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < n1; i += blockDim.x) s_reach[i] = s_next[i];
+      __syncthreads();
+    }
+    // (4) the new indices
+    if (threadIdx.x == 0) {
+      int cnt = 0;
+      for (int i = 0; i < n1; ++i) {
+        s_reach[i] = s_reach[i] && i < nn;
+        if (i == m) s_new[i] = 0;
+        else if (s_reach[i]) s_new[i] = ++cnt;
+        else s_new[i] = N;
+      }
+      s_kept = cnt + 1;
+      s_base = t.ndepth[g0 + m];
+    }
+    __syncthreads();
+    const int base = s_base, kept = s_kept;
+    // (5) move the reached rows down, in index order
+    const size_t na = (size_t)HW * dm.A;
+    for (int i = m; i < nn; ++i) {
+      if (!s_reach[i]) continue;
+      const size_t src = g0 + i, dst = g0 + s_new[i];
+      const int nch = t.nchild[src];
+      __syncthreads();  // every thread has read nchild before row 0 moves
+      for (int k = threadIdx.x; k < C; k += blockDim.x) {
+        const int ch = k < nch ? t.children[src * C + k] : -1;
+        const int cc = clampi(ch, 0, N);
+        t.children[dst * C + k] = (ch >= 0 && s_reach[cc]) ? s_new[cc] : -1;
+      }
+      if (dst != src) {
+        for (int j = threadIdx.x; j < C * HW; j += blockDim.x)
+          t.carms[dst * C * HW + j] = t.carms[src * C * HW + j];
+        for (size_t j = threadIdx.x; j < na; j += blockDim.x) {
+          t.tacc[dst * na + j] = t.tacc[src * na + j];
+          t.tvis[dst * na + j] = t.tvis[src * na + j];
+        }
+        for (int c = threadIdx.x; c < HW; c += blockDim.x)
+          copy_planes(S, dst, S, src, HW, c);
+      }
+      if (threadIdx.x == 0) {
+        t.nplayer[dst] = t.nplayer[src]; t.nterm[dst] = t.nterm[src];
+        t.ndepth[dst] = t.ndepth[src] - base; t.nacc[dst] = t.nacc[src];
+        t.nvis[dst] = t.nvis[src]; t.nchild[dst] = nch;
+        if (dst != src) copy_scalars(S, dst, S, src);
+      }
+      __syncthreads();
+    }
+    // (6) fresh rows past the kept ones; row N keeps its data
+    for (int row = kept; row < N; ++row) fresh_row(dm, t, S, real, g0, row, b);
+    for (int k = threadIdx.x; k < C; k += blockDim.x)
+      t.children[(g0 + N) * C + k] = -1;
+    if (threadIdx.x == 0) {
+      t.ndepth[g0 + N] -= base;
+      t.nchild[g0 + N] = 0;
+      t.nnodes[b] = kept;
+    }
+  }
+  // (7) the root: the real state, the player who can act, game over
+  __syncthreads();
+  for (int c = threadIdx.x; c < HW; c += blockDim.x)
+    copy_planes(S, g0, real, b, HW, c);
+  if (threadIdx.x == 0) {
+    copy_scalars(S, g0, real, b);
+    t.nplayer[g0] = to_move[b];
+    t.nterm[g0] = term[b];
+  }
+}
+
+extern "C" int mcts_reroot_launch(const RerootDims* dm, int batch,
+                                  const TreeP* t, const StateP* S,
+                                  const StateP* real, const int32_t* to_move,
+                                  const uint8_t* term, const uint8_t* live,
+                                  void* stream) {
+  if (dm->n1 > MAXN1) return (int)cudaErrorInvalidValue;
+  reroot_kernel<<<batch, 256, 0, (cudaStream_t)stream>>>(
+      *dm, *t, *S, *real, to_move, term, live);
   return (int)cudaGetLastError();
 }

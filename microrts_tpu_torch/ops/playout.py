@@ -123,14 +123,18 @@ def fast_forward(env, s: State, done: torch.Tensor, t_end=None,
 
 def run_playout(env, act2: Callable, s: State, noise: Sequence,
                 playout_len: int, n_decisions: int, max_skip: int = 512,
-                none_duration: int = 10):
+                none_duration: int = 10,
+                live: Optional[torch.Tensor] = None):
     """One fast-forward playout per lane (playout.py:197-233).
     ``act2(state, noise[d]) -> (a0, a1)`` gives both players' gridnet
     actions at decision ``d``.  Returns (final state, done) after up to
     ``playout_len`` game ticks or ``n_decisions`` decision steps, and the
-    trailing coast to the cap."""
+    trailing coast to the cap.  Lanes outside ``live`` (bool ``[B]``) keep
+    their state, as finished ones do."""
     t_end = s.time + int(playout_len)
     done = env.engine.gameover(s)
+    if live is not None:
+        done = done | ~live
     for d in range(n_decisions):
         live = ~done & (s.time < t_end)
         a0, a1 = act2(s, noise[d])
@@ -173,7 +177,9 @@ def make_playout(env, playout_len: int, eval_fn: Callable,
     ``playout_len=0`` evaluates the state itself.  With ``n_eval > 1``
     each state is played out ``n_eval`` times (lanes ``b * n_eval + i``
     of ``noise``: ``[n_decisions, 2, B * n_eval, H, W, 2]``) and the
-    values are averaged.  ``playout.n_decisions`` is the budget."""
+    values are averaged.  ``live`` (bool ``[B]``) are the lanes played
+    out; the others' values are their states' own.  ``playout.n_decisions``
+    is the budget."""
     if rollout_bot is None:
         from ..bots.scripted import random_bot
         rollout_bot = random_bot(env, 5.0)
@@ -183,10 +189,10 @@ def make_playout(env, playout_len: int, eval_fn: Callable,
     def act2(s, nz):
         return rollout_bot(s, 0, nz[0]), rollout_bot(s, 1, nz[1])
 
-    def one(s: State, player, t0, noise):
+    def one(s: State, player, t0, noise, live):
         if playout_len > 0:
             sf, _ = run_playout(env, act2, s, noise, playout_len,
-                                n_decisions, max_skip)
+                                n_decisions, max_skip, live=live)
         else:
             sf = s
         v = eval_fn(sf, player)
@@ -196,14 +202,17 @@ def make_playout(env, playout_len: int, eval_fn: Callable,
         g = torch.tensor(gamma, dtype=torch.float32, device=dt.device)
         return v * torch.pow(g, dt / 10.0)
 
-    def playout(s: State, player, t0, noise):
+    def playout(s: State, player, t0, noise,
+                live: Optional[torch.Tensor] = None):
         if n_eval <= 1:
-            return one(s, player, t0, noise)
+            return one(s, player, t0, noise, live)
         if isinstance(player, torch.Tensor):
             player = player.repeat_interleave(n_eval, 0)
+        if live is not None:
+            live = live.repeat_interleave(n_eval, 0)
         t0 = torch.as_tensor(t0, dtype=I32, device=s.device).expand(
             s.batch).repeat_interleave(n_eval, 0)
-        v = one(repeat_lanes(s, n_eval), player, t0, noise)
+        v = one(repeat_lanes(s, n_eval), player, t0, noise, live)
         return v.reshape(s.batch, n_eval).mean(1)
 
     playout.n_decisions = n_decisions

@@ -18,7 +18,10 @@ against the opponent every N updates (``evaluate``, through
 ``eval/tournament.play_matches``) and prints the win-rate.
 
 Not ported yet: ``--sharded`` (ROADMAP.md queue 1 item 14); it raises
-``NotImplementedError``.
+``NotImplementedError``.  A stateful ``--opponent`` (BS1/BS2/BS3_NaiveMCTS,
+ContinuingNaiveMCTS) raises ``ValueError``: the trainer calls its
+opponent as ``opponent(state, 1, noise)``, without the memory such a bot
+carries from frame to frame (so does the JAX package's).
 """
 
 from __future__ import annotations
@@ -53,12 +56,17 @@ def main(argv=None):
         raise NotImplementedError(
             "--sharded is not ported yet: ROADMAP.md queue 1 item 14")
 
-    from ..config import make_bot
+    from ..config import STATEFUL_BOTS, JAVA_AI_ALIASES, make_bot
     from ..env.gridnet import GridnetEnv
     from ..utils.assets import asset_path
     from ..utils.checkpoint import load_params, save_params
     from .ppo import PPOConfig, PPOTrainer
 
+    if JAVA_AI_ALIASES.get(args.opponent, args.opponent) in STATEFUL_BOTS:
+        raise ValueError(
+            f"--opponent {args.opponent} is a stateful bot: PPOTrainer calls "
+            "its opponent as opponent(state, 1, noise) and keeps no memory "
+            "for it between steps, so it cannot train against one")
     env = GridnetEnv(asset_path(args.map),
                      device="cpu" if args.cpu else "cuda")
     opponent = make_bot(args.opponent, env)

@@ -83,7 +83,7 @@ def test_kernel_path_equals_plain_on_card(map_rel):
         policy_logprob_fwd=0, policy_logprob_bwd=0, rush=0, event_jump=0,
         evaluate=0, arm_sample=0, arms_to_action=0, mcts_descend=0,
         mcts_backprop=0, enum_next=0, minimax_step=0, issue=0, po_state=0,
-        obs_po=0)
+        obs_po=0, mcts_reroot=0, believe_update=0)
 
 
 def _states(env, B, ticks, seed):
@@ -403,11 +403,12 @@ def test_update_kernel_path_matches_plain_on_card():
             assert not any(counts.values()), counts
         else:
             # every kernel of training; the decision-frame path's, the
-            # tree search's, the minimax search's and the fog's not
+            # tree search's, the minimax search's, the fog's and the
+            # stateful bots' not
             search = ("event_jump", "evaluate", "arm_sample",
                       "arms_to_action", "mcts_descend", "mcts_backprop",
                       "enum_next", "minimax_step", "issue", "po_state",
-                      "obs_po")
+                      "obs_po", "mcts_reroot", "believe_update")
             assert all(v > 0 for n, v in counts.items()
                        if n not in search), counts
             assert not any(counts[n] for n in search), counts
@@ -1066,3 +1067,198 @@ def test_fog_kernels_reject_bad_input_on_card():
             f: getattr(s, f)[:2] for f in FIELD_DTYPES}))
     assert KN.ISSUE(cfg, s, c).equal(env.engine.issue_plain(s, c)) == (
         True, "")
+
+
+# ----------------------------------------------------------------------
+# the stateful bots (K13 believe_update, K12g mcts_reroot)
+
+def _rush_po_states(env, B, ticks, seed):
+    """Plain WorkerRush-vs-LightRush states on the card after 4k random
+    ticks (env k), every 8th tick."""
+    rnd = random_bot(env, BIAS)
+    p0, p1 = S.worker_rush(env), S.light_rush(env)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    s = env.reset(B)
+    early = (torch.arange(B, device="cuda") * 4)[:, None, None, None]
+    out = []
+    for t in range(ticks):
+        if t % 8 == 0:
+            out.append(s)
+        u = [torch.rand((B, env.h, env.w, 2), generator=g, device="cuda")
+             for _ in (0, 1)]
+        a0 = torch.where(t < early, rnd(s, 0, u[0]), p0(s, 0))
+        a1 = torch.where(t < early, rnd(s, 1, u[1]), p1(s, 1))
+        s = env.step(s, a0, a1)[0]
+    return out
+
+
+def _mem_eq(a, b):
+    from microrts_tpu_torch.bots.believestate import BelieveMem
+    for f in BelieveMem.PLANES:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert a.prev.equal(b.prev) == (True, "")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", ["maps/8x8/basesWorkers8x8.xml",
+                                     MAPS[1]])
+def test_believe_update_equals_plain_on_card(map_rel):
+    """``believe_update`` (init, update and the sampled world) for the
+    three levels and both observers against the plain versions, tick by
+    tick along a rush run (half the lanes with their seen types cleared,
+    so that producers are inferred), with one launch an init or update."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import believestate as BS
+    dev = torch.device("cuda")
+    kenv = GridnetEnv(asset_path(map_rel), device=dev)
+    penv = GridnetEnv(asset_path(map_rel), device=dev, plain=True)
+    B = 32
+    states = _rush_po_states(penv, B, 240, 3)
+    inner = S.Opponent(lambda w, p, n: w)
+    for level in (1, 2, 3):
+        counts = dict.fromkeys(BS.RULES, 0)
+        for p in (0, 1):
+            kb = BS.believe_state_bot(kenv, inner, level=level)
+            pb = BS.believe_state_bot(penv, inner, level=level)
+            KN.reset_counts()
+            km, pm = kb.init(states[8], p), pb.init(states[8], p)
+            _mem_eq(km, pm)
+            km.seen_type[B // 2:] = False
+            pm.seen_type[B // 2:] = False
+            for s in states[9:]:
+                km, kw = kb.update(s, km, p)
+                pm, pw = pb.update(s, pm, p, counts)
+                _mem_eq(km, pm)
+                assert kw.equal(pw) == (True, "")
+            c = KN.counts()
+            n = len(states) - 8
+            assert c["believe_update"] == n and c["po_state"] == n, c
+        for rule in ("remembered", "forgotten_by_uid", "inferred",
+                     "relocated") if level == 3 else ():
+            assert counts[rule] > 0, (rule, counts)
+
+
+@pytest.mark.gpu
+def test_reroot_equals_plain_on_card():
+    """``mcts_reroot`` against the plain version on NaiveMCTS trees after
+    a real step: hits at the node of the played action or deeper, misses,
+    lanes left out by ``live``; and ContinuingNaiveMCTS decisions over
+    frames through the kernels equal to the plain path (whole trees,
+    actions) with the re-root launched once a decision."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import treesearch as TS
+    from microrts_tpu_torch.ops.playout import fast_forward
+    path = asset_path("maps/8x8/basesWorkers8x8.xml")
+    kenv = GridnetEnv(path, device="cuda")
+    penv = GridnetEnv(path, device="cuda", plain=True)
+    kw = dict(n_playouts=8, max_nodes=24, max_children=4, max_depth=3,
+              playout_len=8)
+    B = 16
+    s = _random_states(penv, B, 20, 9)[-1]
+    rush = make_bot("WorkerRush", penv)
+    bots = [TS.naive_mcts_continuing(e, **kw) for e in (kenv, penv)]
+    mems = [b.init(s, 0) for b in bots]
+    done = torch.zeros(B, dtype=torch.bool, device="cuda")
+    g = torch.Generator(device="cuda")
+    hits = 0
+    for frame in range(4):
+        out = []
+        for env, b, m in zip((kenv, penv), bots, mems):
+            g.manual_seed(30 + frame)
+            KN.reset_counts()
+            # the re-root alone, on a copy, then the whole step
+            t = dataclasses.replace(m, states=m.states.clone(), **{
+                f: getattr(m, f).clone() for f in TS.NaiveTree.FIELDS})
+            live = torch.arange(B, device="cuda") % 3 != 0
+            TS.mcts_reroot(env, t, s, 0, kw["max_depth"], live)
+            out.append((t,) + b.step(s, m, 0, b.draw(g, B)) + (KN.counts(),))
+        (kt, ka, km, kc), (pt, pa, pm, pc) = out
+        _tree_eq(kt, pt)
+        _tree_eq(km, pm)
+        assert torch.equal(ka, pa)
+        assert kc["mcts_reroot"] == 2 and not any(pc.values()), (kc, pc)
+        hits += int((km.nvis[:, 0] > kw["n_playouts"]).sum())
+        mems = [km, pm]
+        s, _, d = penv.step(s, pa, rush(s, 1))
+        done = done | d
+        s, done = fast_forward(penv, s, done)
+    assert hits > 0
+
+
+@pytest.mark.gpu
+def test_stateful_loop_equals_plain_on_card():
+    """``play_matches_stateful`` of BS3 (small NaiveMCTS) against
+    POWorkerRush and of ContinuingNaiveMCTS against WorkerRush through the
+    kernels equal to the plain path: winners, final states."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import believestate as BS
+    from microrts_tpu_torch.bots import treesearch as TS
+    path = asset_path("maps/8x8/basesWorkers8x8.xml")
+    kw = dict(n_playouts=2, max_nodes=12, max_children=4, max_depth=3,
+              playout_len=8)
+    out = []
+    for plain in (False, True):
+        env = GridnetEnv(path, device="cuda", plain=plain)
+        pairs = [(BS.believe_state_bot(env, TS.naive_mcts_bot(env, **kw)),
+                  BS.stateless(make_bot("POWorkerRush", env))),
+                 (TS.naive_mcts_continuing(env, **kw),
+                  BS.stateless(make_bot("WorkerRush", env)))]
+        KN.reset_counts()
+        out.append([BS.play_matches_stateful(env, a, b, 8, 12, seed=5)
+                    for a, b in pairs] + [KN.counts()])
+    for (kw_, ks, kf), (pw, ps, pf) in zip(out[0][:2], out[1][:2]):
+        assert kf == pf and torch.equal(kw_, pw)
+        assert ks.equal(ps) == (True, "")
+    kc = out[0][2]
+    assert kc["believe_update"] > 0 and kc["mcts_reroot"] > 0, kc
+    assert not any(out[1][2].values())
+
+
+@pytest.mark.gpu
+def test_stateful_kernels_reject_bad_input_on_card():
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import believestate as BS
+    from microrts_tpu_torch.bots import treesearch as TS
+    env = GridnetEnv(asset_path("maps/8x8/basesWorkers8x8.xml"),
+                     device="cuda")
+    cfg = env.cfg.engine
+    s = env.reset(4)
+    view, vis = KN.PO_STATE(cfg, s, 0)
+    sp, pr = BS.spiral_offsets(6), BS.producers(cfg)
+    mem = BS.BelieveMem(prev=view, prev_vis=vis, **KN.BELIEVE(
+        cfg, 3, sp, pr, s, view, vis, 0)[0])
+    with pytest.raises(ValueError):
+        KN.BELIEVE(cfg, 4, sp, pr, s, view, vis, 0, mem)
+    with pytest.raises(ValueError):
+        KN.BELIEVE(cfg, 3, sp, pr[:-1], s, view, vis, 0, mem)
+    with pytest.raises(TypeError):
+        KN.BELIEVE(cfg, 3, sp, pr, s, view, vis.int(), 0, mem)
+    with pytest.raises(ValueError):
+        KN.BELIEVE(cfg, 3, sp, pr, s, view, vis, 0, dataclasses.replace(
+            mem, b_hp=mem.b_hp[:2]))
+    with pytest.raises(ValueError):
+        KN.BELIEVE(cfg, 3, sp, pr, s, view, vis.cpu(), 0, mem)
+    with pytest.raises(ValueError):
+        BS.believe_state_bot(env, S.Opponent(lambda w, p, n: w)).update(
+            s, mem, 0, dict.fromkeys(BS.RULES, 0))
+    bot = TS.naive_mcts_bot(env, n_playouts=2, max_nodes=6, max_children=2,
+                            max_depth=2, playout_len=4).bot
+    tree = bot.init_tree(s, 0)
+    to_move = torch.zeros(4, dtype=torch.int32, device="cuda")
+    term = torch.zeros(4, dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError):
+        KN.REROOT(cfg, tree, s, to_move.long(), term, 2)
+    with pytest.raises(ValueError):
+        KN.REROOT(cfg, tree, State(**{f: getattr(s, f)[:2]
+                                      for f in FIELD_DTYPES}),
+                  to_move, term, 2)
+    with pytest.raises(ValueError):
+        KN.REROOT(cfg, dataclasses.replace(tree, tacc=tree.tacc[:, :, :4]),
+                  s, to_move, term, 2)
+    KN.REROOT(cfg, tree, s, to_move, term, 2)
+    assert int(tree.nnodes.sum()) == 4

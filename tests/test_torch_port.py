@@ -40,6 +40,7 @@ def test_import_loads_no_jax():
             "import microrts_tpu_torch.ops.enumerate, microrts_tpu_torch.ops.branching\n"
             "import microrts_tpu_torch.bots.minimax\n"
             "import microrts_tpu_torch.engine.fog, microrts_tpu_torch.env.pool\n"
+            "import microrts_tpu_torch.bots.believestate\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'microrts_tpu')]\n"
             "print(bad)\n"

@@ -42,4 +42,4 @@ def test_make_bot_monte_carlo_draws_the_jax_defaults():
     assert nz.opp.shape == (L, env.h, env.w, 2)
     assert nz.play.shape == (12, 2, L, env.h, env.w, 2)
     with pytest.raises(NotImplementedError, match="item 10"):
-        make_bot("ContinuingNaiveMCTS", env)
+        make_bot("PortfolioAI", env)

@@ -52,7 +52,13 @@ def test_run_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 14"):
         run.main(ARGS + ["--sharded"])
     with pytest.raises(NotImplementedError, match="item 10"):
-        run.main(ARGS + ["--opponent", "ContinuingNaiveMCTS"])
+        run.main(ARGS + ["--opponent", "PortfolioAI"])
+    # a stateful bot keeps memory across frames, which the trainer does
+    # not carry for its opponent
+    for name in ("ContinuingNaiveMCTS", "ai.mcts.believestatemcts."
+                 "BS3_NaiveMCTS"):
+        with pytest.raises(ValueError, match="stateful"):
+            run.main(ARGS + ["--opponent", name])
     with pytest.raises(NotImplementedError, match="item 4"):
         run.main(ARGS + ["--opponent", "RandomBiasedSingleUnitAI"])
 

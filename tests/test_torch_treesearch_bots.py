@@ -48,8 +48,8 @@ def test_make_bot_builds_the_tree_search_bots():
         torch.Generator(), 2), TS.MCTSNoise)
     assert isinstance(make_bot("ai.mcts.uct.UCT", env).draw(
         torch.Generator(), 2), TS.UCTTreeNoise)
-    for name, item in (("ContinuingNaiveMCTS", "item 10"),
-                       ("BS1_NaiveMCTS", "item 10"),
+    for name, item in (("SCV", "item 10"),
+                       ("PortfolioAI", "item 10"),
                        ("InformedNaiveMCTS", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             make_bot(name, env)
