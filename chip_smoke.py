@@ -7,7 +7,7 @@ Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
 envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the twenty-three CUDA kernels (eighteen sources) from
+2. build: compiles the twenty-four CUDA kernels (eighteen sources) from
    ``microrts_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel; ``-Xptxas -v`` report printed);
 3. realistic states: runs the plain PyTorch path (RandomBiasedAI, bias 5,
@@ -50,7 +50,7 @@ envs:
    odometers in place exact, the largest trip count printed;
    ``minimax_step`` (K12f) on every 5th trip, and every trip that pops a
    root child, of plain ABCD and RTMinimax searches of 16 rush records
-   for both players at small budgets (budget 96 and the reduced shapes
+   for both players at small budgets (budget 64 and the reduced shapes
    of [12]), and on the same trips
    with their pushes turned into exhausted draws (a search never draws
    past its node's last joint action, all NONE), whole stacks, row S
@@ -73,10 +73,18 @@ envs:
    ContinuingNaiveMCTS decision of 16 rush records, at the state after
    the real step (WorkerRush's reply, the fast-forward), at a child's and
    a grandchild's node state, at a state no node holds and with a third
-   of the lanes left out, whole trees exact; each kernel and its plain
-   version are timed with CUDA events (``mcts_reroot`` in [14]);
+   of the lanes left out, whole trees exact; slice 9: ``cycle`` under UTT
+   v3 with a uniform a cell (with and without ``active`` lanes) on every
+   record, completing attacks drawn above their minimum counted, the
+   ``epilogue`` with all eight rewards (the closer rewards non-zero) and
+   ``env_health`` on every record's post-step state with a fault planted
+   in lanes 1-6 of every 8 (hp 0, a type past the UTT, negative ticks on
+   a busy cell, a negative stockpile, a NaN reward, a stockpile above
+   10^6) and healthy lanes, exact; each kernel and its plain version are
+   timed with CUDA events (``mcts_reroot`` in [14]; ``cycle`` under v3
+   and the eight-reward ``epilogue`` beside their v2 figures);
 5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
-   kernels next to the plain path, same start and uniforms, 96 ticks
+   kernels next to the plain path, same start and uniforms, 64 ticks
    with auto-resets; state, obs, rewards and dones equal at every tick;
    launches per step actor 2, decode 2, issue_env 2, cycle 1, epilogue 1,
    splice_obs 1, no other; then a steady window gives env-steps/s;
@@ -160,7 +168,7 @@ envs:
    device's busy share of a profiled decision (ABCD's at a budget of 64);
 13. the PO main path: ``VecGridnetEnv(GridnetEnv(partial_obs=True))`` +
    ``random_bot`` through the kernels next to the plain path, same start
-   (the end of [3]'s PO run) and uniforms, 96 ticks with auto-resets;
+   (the end of [3]'s PO run) and uniforms, 64 ticks with auto-resets;
    state, 8-plane observations, the one-hot of each player's view,
    rewards and dones equal at every tick; launches per step actor 2,
    po_state 2, decode 2, issue 2, cycle 1, epilogue 1, splice_obs 1,
@@ -170,13 +178,13 @@ envs:
    basesWorkers8x8 and NoWhereToRun9x8, 64 ticks kernel vs plain (resets
    to each env's own map); a ``round_robin`` of the four PO rushes and
    WorkerRush on the PO env (20 ordered pairs x 8 games) kernel vs plain
-   to 24 cycles (winners, tables, states equal), then timed to 2000
+   to 16 cycles (winners, tables, states equal), then timed to 2000
    cycles: game-ticks/s;
 14. the stateful bots: 1024 WorkerRush-vs-LightRush games on the PO
    env (2 (k % 32) random opening ticks in env k) played 240 ticks
    through the kernels, then believe memories of levels 1-3 for both
    observers, the seen types cleared in half the lanes, kernel vs plain
-   for 200 ticks (whole memories and sampled worlds exact; every rule of
+   for 150 ticks (whole memories and sampled worlds exact; every rule of
    each level fired for one observer or the other, the cells counted);
    on the 64 timed games of [11], three
    warm BS3_NaiveMCTS decisions at the JAX defaults (``make_bot``), each
@@ -192,12 +200,34 @@ envs:
    ``play_matches_stateful`` of BS3 (the [11] games' budget) against
    POWorkerRush and of ContinuingNaiveMCTS against WorkerRush, 16 games
    to 4 cycles, kernel vs plain (winners and final states equal);
-15. one JSON line of every kernel (launches: phase 7's for the training
+15. slice 9 at full width: ``VecGridnetEnv(quarantine=True)`` over
+   ``GridnetEnv(UnitTypeTable(3), reward_fns=REWARD_NAMES)``, WorkerRush
+   vs LightRush from the end of [3]'s rush run (units in contact), the
+   kernel path next to the plain path with the same damage uniforms for
+   48 ticks, a negative stockpile planted in one lane every 8th tick:
+   states, observations, rewards, dones, steps and reset mask identical;
+   fails unless some completing attack drew damage above its minimum,
+   some closer reward is non-zero and every planted lane was quarantined
+   and reset; launches per step rush 2, decode 2, issue_env 2, cycle 1,
+   epilogue 1, env_health 1, splice_obs 1; the v3 step's env-steps/s
+   (RandomBiasedAI both sides, uniforms drawn) timed in turn with slice
+   1's v2 step (v2, v3, v3, v2); two ``PPOTrainer.update``s on the v3
+   env (``PPOConfig(num_envs=1024)``, phase 7's rollout_len, WorkerRush),
+   the last timed; a round robin of POWorkerRush, POLightRush and
+   WorkerRush on the PO env under ``UnitTypeTable(2, CANCEL_RANDOM)``
+   (coins drawn each frame) kernel next to plain to 24 cycles (states,
+   winners, tables equal); one MonteCarlo decision at the JAX defaults
+   under v3 on [9]'s 64 games kernel next to plain (actions equal), then
+   a warm one timed;
+16. one JSON line of every kernel (launches: phase 7's for the training
    kernels, one MonteCarlo decision's for ``event_jump`` and
    ``evaluate``, one NaiveMCTS decision's at the defaults for K12b-d, one
    ABCD decision's at the defaults for K12e-f, the PO main path's for
-   K11a-c, a ContinuingNaiveMCTS decision's for K12g and a BS3_NaiveMCTS
-   decision's for K13; every phase's under
+   K11a-c, a ContinuingNaiveMCTS decision's for K12g, a BS3_NaiveMCTS
+   decision's for K13 and [15]'s v3 step for ``env_health``; ``cycle``'s
+   entry also holds its UTT v3 figures under ``utt_v3`` and the
+   epilogue's its eight-reward ones under ``eight_rewards``; every
+   phase's under
    ``launches_by_phase``, [12] one entry a bot: the timed decision's, or
    for IDABCD and IDRTMinimax the reduced one's), the ``nvidia-smi``
    line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -224,7 +254,7 @@ BIAS = 5.0
 MIN_TICKS = 300          # phase 3: at least this many plain ticks
 MAX_TICKS = 1500         # ... and at most this many while events are missing
 MIN_ATTACKS = 20         # completing attacks wanted in the recorded inputs
-MAIN_TICKS = 96          # phase 5: compared ticks
+MAIN_TICKS = 64          # phase 5: compared ticks
 MAX_STEPS = 96           # phase 5: episode cap, so that resets happen
 TIME_TICKS = 200         # phase 5: timed window
 ROLL_STEPS = 16          # phase 6: compared rollout steps
@@ -304,14 +334,14 @@ TREE_KERNELS = ("actor", "decode", "issue_env", "cycle", "event_jump",
                 "mcts_backprop")
 # the minimax family (K12e-f)
 MM_SNAPSHOT_EVERY = 5    # phase 4: every 5th minimax_step call kept ...
-MM_SNAPSHOT_BUDGET = 96  # ... of searches of both players at this budget
+MM_SNAPSHOT_BUDGET = 64  # ... of searches of both players at this budget
 MM_REDUCED = {           # phase 12 (and 4): kernel vs plain, 16 games
-    "ABCD": dict(max_depth=2, playout_len=8, node_budget=48),
-    "IDABCD": dict(depths=(1, 2), playout_len=8, node_budget=48),
-    "RTMinimax": dict(lookahead=12, stack_cap=6, node_budget=48),
-    "IDRTMinimax": dict(lookaheads=(6, 12), stack_cap=6, node_budget=48),
+    "ABCD": dict(max_depth=2, playout_len=8, node_budget=32),
+    "IDABCD": dict(depths=(1, 2), playout_len=8, node_budget=32),
+    "RTMinimax": dict(lookahead=12, stack_cap=6, node_budget=32),
+    "IDRTMinimax": dict(lookaheads=(6, 12), stack_cap=6, node_budget=32),
     "IDRTMinimaxRandomized": dict(k_moves=4, repeats=4, lookahead=12,
-                                  stack_cap=6, node_budget=24),
+                                  stack_cap=6, node_budget=16),
     "SampledABCD": dict(k_moves=4, playout_len=8)}
 MM_GAME_CYCLES = 4       # phase 12: ABCD (reduced) vs WorkerRush, 16 games
 # phase 12: kernel vs plain on the 64 timed games at the defaults' stack
@@ -341,7 +371,7 @@ MM_KERNELS = {"ABCD": DFS_KERNELS + ("rush",),
 # the partially observable path (K11a-c)
 PO_TICKS = 128           # phase 3: plain PO ticks (1024 envs)
 PO_RECORD_EVERY = 16     # ... whose inputs are kept every 16th tick
-PO_MAIN_TICKS = 96       # phase 13: compared PO ticks
+PO_MAIN_TICKS = 64       # phase 13: compared PO ticks
 PO_TIME_TICKS = 200      # phase 13: timed window
 PO_PROFILE_TICKS = 20    # phase 13: profiled window
 # phase 13: launches per PO step (random_bot's actor for both players)
@@ -355,18 +385,47 @@ PO_RR_BOTS = ("POWorkerRush", "POLightRush", "POHeavyRush", "PORangedRush",
               "WorkerRush")
 PO_RR_GAMES = 8          # per ordered pair: 20 pairs x 8 = 160 lanes
 # phase 13: kernel next to plain; the plain PO rushes' pool takes ~0.66 s
-# a frame on the card's host, so the check stops at 24 cycles
-PO_RR_CHECK_CYCLES = 24
+# a frame on the card's host, so the check stops at 16 cycles
+PO_RR_CHECK_CYCLES = 16
 PO_RR_CYCLES = 2000      # phase 13: timed
 PO_RR_KERNELS = ("decode", "issue", "po_state", "cycle", "rush",
                  "event_jump")
 # the stateful bots (K13, K12g)
 BEL_OPEN = 240           # phase 14: PO rush ticks before the memories
-BEL_TICKS = 200          # ... then memories kernel vs plain for 200 ticks
+BEL_TICKS = 150          # ... then memories kernel vs plain for 150 ticks
 BS3_PAIRS = 3            # phase 14: BS3_NaiveMCTS, NaiveMCTS decisions in turn
 CONT_FRAMES = 4          # phase 14: consecutive ContinuingNaiveMCTS frames
 REROOT_N = 4             # ... mcts_reroot timed on copies of 64 trees
 STATEFUL_GAME_CYCLES = 4  # phase 14: the stateful loop kernel vs plain
+# slice 9: UTT v3's damage draw, the eight rewards, the quarantine
+FAULT_LANES = 8          # phase 4: lane b % 8 in 1..6 holds a planted fault
+V3_CHECK_TICKS = 48      # phase 15: the v3 quarantined step kernel vs plain
+V3_FAULT_EVERY = 8       # ... a negative stockpile planted every 8th tick
+V3_TIME_TICKS = 200      # phase 15: timed window (phase 5's)
+V3_UPDATES = 2           # phase 15: PPO updates on the v3 env (1 timed)
+RANDOM_RR_BOTS = ("POWorkerRush", "POLightRush", "WorkerRush")
+RANDOM_RR_GAMES = 8      # phase 15: per ordered pair, 6 pairs x 8 lanes
+RANDOM_RR_CYCLES = 24    # ... CANCEL_RANDOM PO round robin kernel vs plain
+
+
+def plant_faults(post, rew, num_types):
+    """Copies of the State ``post`` and of its rewards float32 ``[B, NR']``
+    with one fault in each lane b % FAULT_LANES of 1..6: every unit's hp
+    0, a type past the UTT, a busy cell with negative ticks, a negative
+    stockpile, a NaN reward, a stockpile above 10^6.  Returns (state,
+    rewards, the flags ``env_health`` must raise)."""
+    import torch
+    s, r = post.clone(), rew.clone()
+    lane = torch.arange(s.batch, device=s.device) % FAULT_LANES
+    s.hp[lane == 1] = torch.where(s.utype[lane == 1] > 0, 0,
+                                  s.hp[lane == 1])
+    s.utype[lane == 2, 0, 0] = num_types + 1
+    s.busy[lane == 3, 0, 0] = True
+    s.aticks[lane == 3, 0, 0] = -1
+    s.resources[lane == 4, 0] = -1
+    r[lane == 5, 0] = float("nan")
+    s.resources[lane == 6, 1] = 1_000_001
+    return s, r, (lane >= 1) & (lane <= 6)
 
 
 def smi_line() -> str:
@@ -716,9 +775,10 @@ def main() -> int:
     from microrts_tpu_torch.engine.types import (ATTACK, FIELD_DTYPES,
                                                  HARVEST, PRODUCE, RETURN,
                                                  Candidates, State)
-    from microrts_tpu_torch.env.gridnet import GridnetEnv
+    from microrts_tpu_torch.engine.utt import UnitTypeTable
+    from microrts_tpu_torch.env.gridnet import REWARD_NAMES, GridnetEnv
     from microrts_tpu_torch.env.pool import MapPoolVecEnv
-    from microrts_tpu_torch.env.vec import VecGridnetEnv
+    from microrts_tpu_torch.env.vec import VecGridnetEnv, env_health_plain
     from microrts_tpu_torch.models.gridnet_policy import (
         ActionSpace, GridnetPolicy, action_logprob_plain, greedy_action_plain,
         gumbel_noise, sample_action_plain)
@@ -1432,6 +1492,59 @@ def main() -> int:
           f"{bel_rules}), mcts_reroot on {TREE_GAMES} trees after a real "
           f"step (lanes {reroot_cases}), equal to plain "
           f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    # slice 9 (K5 rest, K6 rest): cycle under UTT v3 with the cells'
+    # uniforms (and active lanes), the epilogue with all eight rewards,
+    # env_health on planted faults and healthy lanes, on every record
+    t1 = time.perf_counter()
+    k3env = GridnetEnv(path, UnitTypeTable(3), reward_fns=REWARD_NAMES,
+                       device=dev)
+    p3env = GridnetEnv(path, UnitTypeTable(3), reward_fns=REWARD_NAMES,
+                       device=dev, plain=True)
+    cfg3, peng3 = k3env.cfg.engine, p3env.engine
+    above = closer = flagged = 0
+    for r in records:
+        u01 = torch.rand((B, H, W), generator=gen, device=dev)
+        act = torch.rand(B, generator=gen, device=dev) < 0.75
+        for a in (None, act):
+            ks, kd = KN.CYCLE(cfg3, r["s2"], a, u01)
+            ps, pd = peng3.cycle_plain(r["s2"], a, u01)
+            errs["cycle"] = max(errs["cycle"], expect_equal(
+                "cycle (UTT v3)", state_pairs(ks, ps) + [("done", kd, pd)]))
+        t = (r["s2"].utype.long() - 1).clamp(0, cfg3.num_types - 1)
+        lo = peng3.lut("min_damage", dev)[t]
+        hi = peng3.lut("max_damage", dev)[t]
+        comp = r["s2"].busy & (r["s2"].aticks <= 1) & (r["s2"].atype
+                                                       == ATTACK)
+        above += int((comp & (hi > lo)
+                      & ((u01 * (hi - lo + 1)).int() > 0)).sum())
+        pre, post, c0, c1 = r["s"], r["post"], r["c0"], r["c1"]
+        rew, dn, rm, nst = KN.EPILOGUE(k3env.cfg, post, pre, c0, c1,
+                                       r["steps"], MAX_STEPS, done_copies=2)
+        pdn = p3env.dones_plain(post)
+        prm = pdn[:, 0] | (r["steps"] + 1 >= MAX_STEPS)
+        errs["epilogue"] = max(errs["epilogue"], expect_equal(
+            "epilogue (eight rewards)", [
+                ("rewards", rew, p3env.rewards_plain(pre, c0, c1, post)),
+                ("dones", dn, torch.stack([pdn, pdn])), ("reset", rm, prm),
+                ("steps", nst, torch.where(prm, 0, r["steps"] + 1).int())]))
+        closer += int((rew[..., 6:] != 0).sum())
+        fs, frew, want_bad = plant_faults(post, rew.reshape(B, -1),
+                                          cfg.num_types)
+        kbad = KN.ENV_HEALTH(cfg, fs, frew)
+        errs["env_health"] = max(errs["env_health"], expect_equal(
+            "env_health", [("failed", kbad, env_health_plain(fs, frew, cfg)),
+                           ("failed vs planted", kbad, want_bad)]))
+        flagged += int(kbad.sum())
+    if above == 0 or closer == 0:
+        raise AssertionError(f"the v3 records: {above} attacks above their "
+                             f"minimum, {closer} closer rewards non-zero")
+    torch.cuda.synchronize()
+    print(f"    cycle under UTT v3 (with and without active lanes; "
+          f"{above} completing attacks drawn above their minimum), "
+          f"epilogue with the eight rewards ({closer} closer rewards "
+          f"non-zero) and env_health ({flagged} lanes flagged, 6 of every "
+          f"{FAULT_LANES} planted) equal to plain on {len(records)} "
+          f"records ({time.perf_counter() - t1:.1f} s)", flush=True)
     print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
           f"(max |diff| {errs})", flush=True)
 
@@ -1484,6 +1597,14 @@ def main() -> int:
                r["post"].carried, r["steps"], *epi_out,
                *[getattr(c, f) for c in (r["c0"], r["c1"])
                  for f in ("atype", "atx", "aty", "aptype")]))
+    # env_health: utype, hp, busy, aticks, the stockpiles and the eight
+    # rewards of both players in, the flags out, on planted faults
+    fs, frew, _ = plant_faults(r["post"], torch.zeros(
+        (B, 2 * len(REWARD_NAMES)), device=dev), cfg.num_types)
+    timing["env_health"] = (
+        lambda: KN.ENV_HEALTH(cfg, fs, frew),
+        lambda: env_health_plain(fs, frew, cfg),
+        nbytes(fs.utype, fs.hp, fs.busy, fs.aticks, fs.resources, frew) + B)
     # splice_obs: the post planes of the envs that keep playing and the
     # initial state in; the spliced state, both observations and player
     # 0's one-hot out
@@ -1744,6 +1865,35 @@ def main() -> int:
               f"({byts / 1e6:.2f} MB)", flush=True)
     del lg, lmask, lact, plg, plp, pent, pobj
     timing.clear()   # the timed copies of odometers and stacks
+    # the slice-9 variants of two kernels beside their v2 figures above:
+    # cycle under UTT v3 (the uniforms read too), the epilogue with the
+    # eight rewards (two more floats a player out)
+    u01 = torch.rand((B, H, W), generator=gen, device=dev)
+    epi8 = KN.EPILOGUE(k3env.cfg, r["post"], st, r["c0"], r["c1"],
+                       r["steps"], MAX_STEPS, done_copies=2)
+    variants = {
+        ("cycle", "utt_v3"): (
+            lambda: KN.CYCLE(cfg3, st2, None, u01),
+            lambda: peng3.cycle_plain(st2, None, u01),
+            times["cycle"][3] + nbytes(u01)),
+        ("epilogue", "eight_rewards"): (
+            lambda: KN.EPILOGUE(k3env.cfg, r["post"], st, r["c0"], r["c1"],
+                                r["steps"], MAX_STEPS, done_copies=2),
+            lambda: (p3env.rewards_plain(st, r["c0"], r["c1"], r["post"]),
+                     p3env.dones_plain(r["post"])),
+            times["epilogue"][3] + nbytes(epi8[0]) - nbytes(epi_out[0]))}
+    variant_times = {}
+    for (name, var), (kfn, pfn, byts) in variants.items():
+        kms, kpaced = cuda_ms(kfn, n=200)
+        pms, ppaced = cuda_ms(pfn, n=20)
+        bound = byts / HBM_BYTES_PER_S * 1e3
+        variant_times[name] = {var: dict(ms=kms, plain_ms=pms,
+                                         bound_ms=bound, bound_by="bytes")}
+        print(f"    {name + ' ' + var:18s} kernel {kms * 1e3:8.2f} "
+              f"({kpaced * 1e3:8.2f}) us  plain {pms * 1e3:9.2f} "
+              f"({ppaced * 1e3:9.2f}) us  bound {bound * 1e3:6.2f} us by "
+              f"bytes ({byts / 1e6:.2f} MB)", flush=True)
+    del variants
 
     # ---- [5] the main path through the kernels, next to the plain path
     kvec = VecGridnetEnv(kenv, B, max_steps=MAX_STEPS)
@@ -1775,7 +1925,8 @@ def main() -> int:
                 policy_logprob_bwd=0, rush=0, event_jump=0, evaluate=0,
                 arm_sample=0, arms_to_action=0, mcts_descend=0,
                 mcts_backprop=0, enum_next=0, minimax_step=0, issue=0,
-                po_state=0, obs_po=0, mcts_reroot=0, believe_update=0)
+                po_state=0, obs_po=0, mcts_reroot=0, believe_update=0,
+                env_health=0)
     if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
@@ -2091,6 +2242,7 @@ def main() -> int:
     sec = (timed[0][0] + timed[1][0]) / 2
     roll_s = (timed[0][1] + timed[1][1]) / 2
     learn_s = (timed[0][2] + timed[1][2]) / 2
+    train_rate_v2 = B * T / sec
     print(f"    training env-steps/s/card: {B * T / sec:.1f} (B={B}, 16x16, "
           f"rollout_len {T}, 4 epochs x 4 minibatches, WorkerRush, bf16 "
           f"policy 64x4, Adam; median of 2 updates after a warm-up: "
@@ -2971,7 +3123,193 @@ def main() -> int:
               f"({time.perf_counter() - t1:.1f} s)", flush=True)
     print(f"    [14] took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- [15] results
+    # ---- [15] slice 9 at full width: UTT v3, the eight rewards and the
+    # quarantine on the vec step (kernel next to plain, then timed beside
+    # slice 1's v2 step), a PPO update on that env, a CANCEL_RANDOM PO
+    # round robin kernel next to plain, a MonteCarlo decision under v3
+    t0 = time.perf_counter()
+    k3vec = VecGridnetEnv(k3env, B, max_steps=MAX_STEPS, quarantine=True)
+    p3vec = VecGridnetEnv(p3env, B, max_steps=MAX_STEPS, quarantine=True)
+    krush3 = (make_bot("WorkerRush", k3env), make_bot("LightRush", k3env))
+    prush3 = (make_bot("WorkerRush", p3env), make_bot("LightRush", p3env))
+    # the plain env's cycles counted: completing attacks whose drawn
+    # damage is above their type's minimum
+    drawn = []
+    pcycle = peng3.cycle
+
+    def probed(state, active=None, u01=None):
+        t = (state.utype.long() - 1).clamp(0, cfg3.num_types - 1)
+        lo = peng3.lut("min_damage", dev)[t]
+        hi = peng3.lut("max_damage", dev)[t]
+        comp = state.busy & (state.aticks <= 1) & (state.atype == ATTACK)
+        drawn.append(int((comp & (hi > lo)
+                          & ((u01 * (hi - lo + 1)).int() > 0)).sum()))
+        return pcycle(state, active, u01)
+
+    peng3.cycle = probed
+    gen.manual_seed(15)
+    steps3 = torch.randint(0, MAX_STEPS, (B,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    ks, ksteps = rush_start.clone(), steps3.clone()
+    ps, psteps = rush_start.clone(), steps3.clone()
+    quarantined = closer = resets = 0
+    KN.reset_counts()
+    for t in range(V3_CHECK_TICKS):
+        u01 = k3env.draw_u01(gen, 1, B)
+        lane = (37 * t) % B
+        if t % V3_FAULT_EVERY == 1:     # a negative stockpile, both paths
+            ks.resources[lane, 0] = -1
+            ps.resources[lane, 0] = -1
+        ka = (krush3[0](ks, 0), krush3[1](ks, 1))
+        pa = (prush3[0](ps, 0), prush3[1](ps, 1))
+        kout = k3vec.step(ks, ksteps, *ka, u01=u01)
+        pout = p3vec.step(ps, psteps, *pa, u01=u01)
+        expect_equal(f"v3 quarantined step tick {t}", state_pairs(
+            kout[0], pout[0]) + [
+            ("actions p0", ka[0], pa[0]), ("actions p1", ka[1], pa[1])] + [
+            (n, a, b) for n, a, b in zip(
+                ("steps", "obs", "rewards", "dones", "reset_mask"),
+                kout[1:], pout[1:])])
+        if t % V3_FAULT_EVERY == 1:
+            if not (bool(kout[5][lane]) and int(kout[1][lane]) == 0):
+                raise AssertionError(f"v3 step tick {t}: the planted lane "
+                                     f"{lane} was not quarantined")
+            quarantined += 1
+        closer += int((kout[3][..., 6:] != 0).sum())
+        resets += int(kout[5].sum())
+        (ks, ksteps), (ps, psteps) = kout[:2], pout[:2]
+    v3_counts = KN.counts()
+    torch.cuda.synchronize()
+    del peng3.cycle
+    want = dict(rush=2, decode=2, issue_env=2, cycle=1, epilogue=1,
+                env_health=1, splice_obs=1)
+    if v3_counts != {n: want.get(n, 0) * V3_CHECK_TICKS for n in v3_counts}:
+        raise AssertionError(f"v3 step launch counts {v3_counts}, want per "
+                             f"step {want} and no other")
+    if sum(drawn) == 0 or closer == 0 or quarantined == 0:
+        raise AssertionError(f"v3 step: {sum(drawn)} attacks above their "
+                             f"minimum, {closer} closer rewards non-zero, "
+                             f"{quarantined} lanes quarantined")
+    print(f"[15] v3 quarantined step (UTT v3, eight rewards, WorkerRush vs "
+          f"LightRush from the end of [3]'s rush run): {V3_CHECK_TICKS} "
+          f"ticks identical to the plain path; {sum(drawn)} completing "
+          f"attacks drawn above their minimum, {closer} closer rewards "
+          f"non-zero, {quarantined} planted lanes quarantined and reset, "
+          f"{resets} resets; launches per step "
+          f"{ {n: c // V3_CHECK_TICKS for n, c in v3_counts.items() if c} } "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def run3(vec, n, draw):
+        st, sp = realistic.clone(), steps0.clone()
+        bot = random_bot(vec.env, BIAS)
+
+        def step(st, sp):
+            u0, u1 = uniforms()
+            return vec.step(st, sp, bot(st, 0, u0), bot(st, 1, u1),
+                            gen=gen if draw else None)[:2]
+        for _ in range(3):
+            st, sp = step(st, sp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            st, sp = step(st, sp)
+        torch.cuda.synchronize()
+        return B * n / (time.perf_counter() - t1)
+
+    rates = {"v2": [], "v3": []}
+    for name in ("v2", "v3", "v3", "v2"):
+        rates[name].append(run3(kvec if name == "v2" else k3vec,
+                                V3_TIME_TICKS, name == "v3"))
+    print(f"    v3 quarantined step env-steps/s/card: "
+          f"{', '.join(f'{v:.1f}' for v in rates['v3'])}; slice 1's v2 step "
+          f"in the same window {', '.join(f'{v:.1f}' for v in rates['v2'])} "
+          f"(v2, v3, v3, v2; RandomBiasedAI both sides, B={B}, "
+          f"{V3_TIME_TICKS} steps each; v3 draws its damage uniforms from "
+          f"the generator; {kind}, {smi})", flush=True)
+
+    t1 = time.perf_counter()
+    model = GridnetPolicy(space, 20 + cfg.num_types)
+    model.load_state_dict(net.state_dict())
+    tr3 = PPOTrainer(k3env, PPOConfig(num_envs=B, rollout_len=T),
+                     opponent=make_bot("WorkerRush", k3env), model=model)
+    ts3 = tr3.init(seed=None)
+    upd3 = []
+    for _ in range(V3_UPDATES):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ts3, m3 = tr3.update(ts3)
+        torch.cuda.synchronize()
+        upd3.append(time.perf_counter() - t2)
+        if not all(torch.isfinite(v).all() for v in m3.values()):
+            raise AssertionError(f"non-finite v3 training metrics {m3}")
+    del tr3, ts3, model
+    print(f"    PPOTrainer.update on the v3 env (eight rewards, WorkerRush, "
+          f"PPOConfig(num_envs={B}), rollout_len {T}): "
+          f"{B * T / upd3[-1]:.1f} env-steps/s/card on the last of "
+          f"{V3_UPDATES} updates ({', '.join(f'{x:.3f}' for x in upd3)} s "
+          f"each; phase 7's v2 rate {train_rate_v2:.1f}); metrics "
+          f"{ {k: round(float(v), 4) for k, v in m3.items()} }; {kind}, "
+          f"{smi} ({time.perf_counter() - t1:.1f} s)", flush=True)
+
+    # the CANCEL_RANDOM PO round robin: the coins drawn each frame
+    t1 = time.perf_counter()
+    kpor = GridnetEnv(asset_path(MAP), UnitTypeTable(2, 2),
+                      partial_obs=True, device=dev)
+    ppor = GridnetEnv(asset_path(MAP), UnitTypeTable(2, 2),
+                      partial_obs=True, device=dev, plain=True)
+    TN._games_fn = recording_games_fn
+    out = []
+    for env in (kpor, ppor):
+        KN.reset_counts()
+        table = TN.round_robin(env, {n: make_bot(n, env)
+                                     for n in RANDOM_RR_BOTS},
+                               RANDOM_RR_GAMES, RANDOM_RR_CYCLES, seed=15)
+        torch.cuda.synchronize()
+        out.append((table, *games.pop(), KN.counts()))
+    TN._games_fn = games_fn
+    (ktab, kw, ks, kframes, kc), (ptab, pw, ps, _, pc) = out
+    expect_equal("CANCEL_RANDOM PO round robin", state_pairs(ks, ps)
+                 + [("winners", kw, pw)])
+    same_tables("CANCEL_RANDOM PO round robin", ktab, ptab)
+    if kc["issue"] == 0 or any(pc.values()):
+        raise AssertionError(f"CANCEL_RANDOM PO round robin launched {kc}, "
+                             f"plain {pc}")
+    print(f"    CANCEL_RANDOM PO round robin ({RANDOM_RR_BOTS}, "
+          f"{len(kw)} lanes x {RANDOM_RR_CYCLES} cycles, {kframes} frames): "
+          f"identical to the plain path (states, winners, table); launches "
+          f"{ {n: c for n, c in kc.items() if c} } "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    del out, ks, ps
+
+    # one MonteCarlo decision at the JAX defaults under v3 on [9]'s games
+    t1 = time.perf_counter()
+    kmc3, pmc3 = make_bot("MonteCarlo", k3env), make_bot("MonteCarlo",
+                                                          p3env)
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    nz = kmc3.draw(g, MC_GAMES)
+    KN.reset_counts()
+    ka = kmc3(mc_state, 0, nz)
+    mc3_counts = KN.counts()
+    pa = pmc3(mc_state, 0, nz)
+    expect_equal("MonteCarlo decision (UTT v3)", [("actions", ka, pa)])
+    if any(mc3_counts[n] == 0 for n in MC_KERNELS):
+        raise AssertionError(f"a v3 MonteCarlo decision launched "
+                             f"{mc3_counts}")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    kmc3(mc_state, 0, kmc3.draw(g, MC_GAMES))
+    torch.cuda.synchronize()
+    mc3_sec = time.perf_counter() - t2
+    print(f"    MonteCarlo (the JAX defaults) under UTT v3: one decision of "
+          f"{MC_GAMES} games identical to the plain path (damage uniforms "
+          f"{tuple(nz.u01.shape)}); a warm decision {mc3_sec:.3f} s = "
+          f"{MC_GAMES / mc3_sec:.1f} game-decisions/s/card; launches "
+          f"{ {n: c for n, c in mc3_counts.items() if c} } "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    print(f"    [15] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- [16] results
     kernels = []
     tree_k = ("arm_sample", "arms_to_action", "mcts_descend",
               "mcts_backprop")
@@ -2987,6 +3325,7 @@ def main() -> int:
                     if k.name == "mcts_reroot"
                     else stateful_counts["BS3"][k.name]
                     if k.name == "believe_update"
+                    else v3_counts[k.name] if k.name == "env_health"
                     else mc_counts[k.name] if new else upd_counts[k.name])
         by_phase = {"5": counts[k.name], "6": roll_counts[k.name],
                     "7": upd_counts[k.name], "8": rr_counts[k.name],
@@ -3002,12 +3341,14 @@ def main() -> int:
                              stateful_counts["Continuing"][k.name]})
         by_phase.update({f"14 {n} games": c[k.name]
                          for n, c in loop_counts.items()})
+        by_phase.update({"15 v3 step": v3_counts[k.name],
+                         "15 v3 MonteCarlo": mc3_counts[k.name]})
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
             source=k.source, replaces=k.replaces, launches=launches,
             launches_by_phase=by_phase,
             max_abs_err=errs[k.name], ms=kms, plain_ms=pms, bound_ms=bound,
-            bound_by=by, library_ms=None))
+            bound_by=by, library_ms=None, **variant_times.get(k.name, {})))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

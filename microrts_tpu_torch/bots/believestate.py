@@ -383,12 +383,13 @@ def play_matches_stateful(env: GridnetEnv, bot0: StatefulBot,
     there take their winner, both bots step on every lane (the finished
     lanes' memories are kept), the env steps and finished lanes are frozen
     by select.  ``noise(frame, player)`` stands in for each bot's
-    ``draw`` from a generator seeded with ``seed``.  ``chunk`` (default
+    ``draw`` from a generator seeded with ``seed``, and ``noise(frame,
+    None)`` for the frame's engine draws (``eval.tournament.FrameDraws``)
+    where the env needs them.  ``chunk`` (default
     ``eval.tournament.CHUNK``) is the interval between the host's checks
     that every lane is done.  Returns (winners int32 ``[n_games]``: 0, 1
     or -1, the final State, the frames run)."""
-    from ..eval.tournament import CHUNK, _generator
-    from ..ops.playout import fast_forward
+    from ..eval.tournament import CHUNK, _generator, frame_draws, frame_step
     if chunk is None:
         chunk = CHUNK
     eng, dev = env.engine, env.device
@@ -398,9 +399,14 @@ def play_matches_stateful(env: GridnetEnv, bot0: StatefulBot,
     done = torch.zeros(n_games, dtype=torch.bool, device=dev)
     winner = torch.full((n_games,), -1, dtype=I32, device=dev)
     frame = 0
+    draws = env.needs_draws
     while frame < max_cycles:
         for _ in range(min(chunk, max_cycles - frame)):
-            s, d_ff = fast_forward(env, s, done, t_end=max_cycles)
+            fd = None
+            if draws:
+                fd = (noise(frame, None) if noise
+                      else frame_draws(env, gen, n_games))
+            advance, s, d_ff = frame_step(env, s, done, max_cycles, fd)
             winner = torch.where(done, winner, torch.where(
                 d_ff, eng.winner(s), -1))
             done = done | d_ff | (s.time >= max_cycles)
@@ -408,7 +414,7 @@ def play_matches_stateful(env: GridnetEnv, bot0: StatefulBot,
             nz1 = noise(frame, 1) if noise else bot1.draw(gen, n_games)
             a0, m0 = bot0.step(s, m0, 0, nz0, live=~done)
             a1, m1 = bot1.step(s, m1, 1, nz1, live=~done)
-            s2, done2 = env.advance(s, a0, a1)[2:]
+            s2, done2 = advance(s, a0, a1)
             winner = torch.where(done, winner, torch.where(
                 done2, eng.winner(s2), -1))
             s = s2.select(done, s)

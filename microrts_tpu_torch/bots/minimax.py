@@ -30,7 +30,11 @@ Randomness enters as tensors: IDRTMinimaxRandomized reads a coin table
 int32 ``[B, K, R, budget + 1]`` (entry 0 the root entry's coin, entry
 ``n`` the ``n``-th push's); SampledABCD reads RandomBiasedAI's uniforms
 float32 ``[2, K - 1, B, H, W, 2]`` for its candidates.  The others draw
-nothing (WorkerRush is deterministic).
+nothing (WorkerRush is deterministic).  Where the env needs the engine's
+draws (UTT v3's damage; CANCEL_RANDOM's coins under fog for SampledABCD's
+first tick), every bot's noise also holds an ``ops.playout.EngineNoise``
+that draws them on demand (the DFS's cycles depend on the search); JAX
+draws them from the states' keys.
 """
 
 from __future__ import annotations
@@ -46,10 +50,10 @@ from ..engine.types import FIELD_DTYPES, State
 from ..env.gridnet import GridnetEnv
 from ..ops.arms import arm_space, arms_to_action, first_max
 from ..ops.enumerate import EnumCtx, Odometer, ctx_of, make_enumerator
-from ..ops.playout import can_act, make_playout, repeat_lanes
+from ..ops.playout import EngineNoise, can_act, make_playout, repeat_lanes
 from .scripted import Opponent, random_bot, worker_rush
 from .search import _default_eval
-from .treesearch import _advance, _issue_player, stacked_rows
+from .treesearch import ADVANCE_EVENTS, _advance, _issue_player, stacked_rows
 
 I32 = torch.int32
 F32 = torch.float32
@@ -246,8 +250,10 @@ def _make_dfs(env: GridnetEnv, *, alt: bool, max_depth: int,
     time (RTMinimax); ``randomized`` picks the mover of a simultaneous
     node by the coin table (IDRTMinimaxRandomized).
 
-    Returns ``run(state, maxp, coins=None) -> (action int32 [B, H, W, 7],
-    root value float32 [B], Stack)``."""
+    Returns ``run(state, maxp, coins=None, draws=None) -> (action int32
+    [B, H, W, 7], root value float32 [B], Stack)``; ``draws`` (an
+    ``EngineNoise``) gives the cycles' damage uniforms under random
+    damage."""
     eng = env.engine
     S = stack_cap
     sp_arm = arm_space(env)
@@ -274,16 +280,25 @@ def _make_dfs(env: GridnetEnv, *, alt: bool, max_depth: int,
                else st.time >= t0 + lookahead)
         return mover.to(I32), nextsim.to(I32), term | cut | (level >= S - 1)
 
-    def first_best(st: State, mover, leaf, want, maxp: int, t0):
+    def u01(draws, cycles: int, lanes: int):
+        if not env.random_damage:
+            return None
+        if draws is None:
+            raise ValueError("minimax: random damage (UTT v3) needs draws")
+        return draws.u01(cycles, lanes)
+
+    def first_best(st: State, mover, leaf, want, maxp: int, t0, draws):
         """A node's initial best: the leaf's value (played out only where
         ``want`` holds a lane), else -/+ VICTORY."""
         v = torch.zeros(st.batch, dtype=F32, device=st.device)
         if bool(want.any()):
-            v = playout(st, maxp, t0, no_noise)
+            v = playout(st, maxp, t0, no_noise,
+                        u01=u01(draws, playout.n_cycles, st.batch))
         return torch.where(leaf, v, torch.where(mover == maxp, -VICTORY,
                                                 VICTORY)).to(F32)
 
-    def run(state: State, maxp: int, coins: Optional[torch.Tensor] = None):
+    def run(state: State, maxp: int, coins: Optional[torch.Tensor] = None,
+            draws: Optional[EngineNoise] = None):
         maxp = int(maxp)
         B, dev = state.batch, state.device
         rows = torch.arange(B, device=dev)
@@ -292,7 +307,7 @@ def _make_dfs(env: GridnetEnv, *, alt: bool, max_depth: int,
         mover0, nextsim0, leaf0 = entry(
             state, zero, torch.full((B,), maxp, dtype=I32, device=dev),
             None if coins is None else coins[:, 0], t0, maxp)
-        best0 = first_best(state, mover0, leaf0, leaf0, maxp, t0)
+        best0 = first_best(state, mover0, leaf0, leaf0, maxp, t0, draws)
         stk = new_stack(state, S, ctx_of(env, state, mover0,
                                          env.masks(state, mover0)),
                         ~leaf0, mover0, nextsim0, best0)
@@ -310,7 +325,7 @@ def _make_dfs(env: GridnetEnv, *, alt: bool, max_depth: int,
             if bool(push.any()):
                 st1 = _issue_player(env, stk.cur, arms_to_action(
                     sp_arm, arms, plain=plain), stk.mover[rows, L])
-                st2, _ = _advance(env, st1)
+                st2, _ = _advance(env, st1, u01=u01(draws, ADVANCE_EVENTS, B))
                 coin = (None if coins is None
                         else coins[rows, (stk.npush + 1).long()])
                 mover2, nextsim2, leaf2 = entry(st2, stk.sp + 1,
@@ -320,7 +335,7 @@ def _make_dfs(env: GridnetEnv, *, alt: bool, max_depth: int,
                     st2=st2, mask2=env.masks(st2, mover2), mover2=mover2,
                     nextsim2=nextsim2, leaf2=leaf2,
                     best2=first_best(st2, mover2, leaf2, push & leaf2, maxp,
-                                     t0))
+                                     t0, draws))
             minimax_step(env, stk, trip, maxp)
 
         act = arms_to_action(sp_arm, stk.root_arms, plain=plain)
@@ -337,15 +352,25 @@ def _make_dfs(env: GridnetEnv, *, alt: bool, max_depth: int,
     return run
 
 
-def _dfs_opponent(run) -> Opponent:
+def _engine_draw(env: GridnetEnv):
+    """``draw`` of a bot whose only noise is the engine's draws: an
+    ``EngineNoise`` where the env needs them, else None."""
+    def draw(gen: torch.Generator, batch: int) -> Optional[EngineNoise]:
+        if env.needs_draws:
+            return EngineNoise(env, gen)
+        return None
+    return draw
+
+
+def _dfs_opponent(env: GridnetEnv, run) -> Opponent:
     def bot(state: State, player: int, noise=None) -> torch.Tensor:
-        return run(state, player)[0]
+        return run(state, player, draws=noise)[0]
 
     bot.run = run
-    bot.value_fn = lambda state, player, coins=None: run(state, player,
-                                                         coins)[1]
+    bot.value_fn = lambda state, player, coins=None, draws=None: run(
+        state, player, coins, draws)[1]
     bot.dims = run.dims
-    return Opponent(bot)
+    return Opponent(bot, _engine_draw(env))
 
 
 def abcd_bot(env: GridnetEnv, max_depth: int = 4, playout_len: int = 100,
@@ -356,7 +381,7 @@ def abcd_bot(env: GridnetEnv, max_depth: int = 4, playout_len: int = 100,
     bot exposes ``run``, ``value_fn`` and ``dims`` (stack rows, budget)."""
     if playout_bot is None:
         playout_bot = worker_rush(env)
-    return _dfs_opponent(_make_dfs(
+    return _dfs_opponent(env, _make_dfs(
         env, alt=True, max_depth=max_depth, lookahead=None,
         stack_cap=max_depth + 1, node_budget=node_budget,
         playout_len=playout_len, playout_bot=playout_bot,
@@ -368,24 +393,24 @@ def rt_minimax_bot(env: GridnetEnv, lookahead: int = 50, stack_cap: int = 12,
                    eval_fn: Optional[Callable] = None) -> Opponent:
     """RTMinimax: alpha-beta to a game-time horizon, leaves evaluated
     directly (ai/minimax/RTMiniMax/RTMinimax.java:97-180)."""
-    return _dfs_opponent(_make_dfs(
+    return _dfs_opponent(env, _make_dfs(
         env, alt=False, max_depth=0, lookahead=lookahead,
         stack_cap=stack_cap, node_budget=node_budget, playout_len=0,
         playout_bot=None, eval_fn=_default_eval(env, eval_fn)))
 
 
-def _deepening(runs) -> Opponent:
+def _deepening(env: GridnetEnv, runs) -> Opponent:
     """A fixed deepening schedule: every search runs, the last (deepest)
     one's action wins (IDABCD, IDRTMinimax.java:118-163)."""
     def bot(state: State, player: int, noise=None) -> torch.Tensor:
         act = None
         for run in runs:
-            act = run(state, player)[0]
+            act = run(state, player, draws=noise)[0]
         return act
 
     bot.runs = runs
     bot.dims = tuple(run.dims for run in runs)
-    return Opponent(bot)
+    return Opponent(bot, _engine_draw(env))
 
 
 def id_abcd_bot(env: GridnetEnv, depths=(1, 2, 3, 4), playout_len: int = 100,
@@ -393,7 +418,7 @@ def id_abcd_bot(env: GridnetEnv, depths=(1, 2, 3, 4), playout_len: int = 100,
                 playout_bot: Optional[Callable] = None,
                 eval_fn: Optional[Callable] = None) -> Opponent:
     """IDABCD: ABCD over the depth schedule ``depths``."""
-    return _deepening([abcd_bot(env, d, playout_len, node_budget,
+    return _deepening(env, [abcd_bot(env, d, playout_len, node_budget,
                                 playout_bot, eval_fn).bot.run
                        for d in depths])
 
@@ -402,7 +427,7 @@ def idrt_minimax_bot(env: GridnetEnv, lookaheads=(25, 50, 100),
                      stack_cap: int = 12, node_budget: int = 512,
                      eval_fn: Optional[Callable] = None) -> Opponent:
     """IDRTMinimax: RTMinimax over the lookahead schedule ``lookaheads``."""
-    return _deepening([rt_minimax_bot(env, la, stack_cap, node_budget,
+    return _deepening(env, [rt_minimax_bot(env, la, stack_cap, node_budget,
                                       eval_fn).bot.run
                        for la in lookaheads])
 
@@ -418,7 +443,8 @@ def idrt_minimax_randomized_bot(env: GridnetEnv, k_moves: int = 8,
     coin-flip DFS, all ``B * K * R`` searches as lanes of one DFS, and
     scored ``mean - std`` (population std) over the repeats; the first
     best score wins.  ``noise``: the coin table int32 ``[B, K, R, budget
-    + 1]`` (``draw``)."""
+    + 1]`` (``draw``), or under random damage the pair (coin table,
+    ``EngineNoise``)."""
     eval_fn = _default_eval(env, eval_fn)
     sp = arm_space(env)
     init_enum, next_action = make_enumerator(env)
@@ -429,25 +455,28 @@ def idrt_minimax_randomized_bot(env: GridnetEnv, k_moves: int = 8,
     K, R = k_moves, repeats
     plain = env.engine.plain
 
-    def draw(gen: torch.Generator, batch: int) -> torch.Tensor:
-        return torch.randint(0, 2, (batch, K, R, node_budget + 1),
-                             generator=gen, device=env.device, dtype=I32)
+    def draw(gen: torch.Generator, batch: int):
+        coins = torch.randint(0, 2, (batch, K, R, node_budget + 1),
+                              generator=gen, device=env.device, dtype=I32)
+        return (coins, EngineNoise(env, gen)) if env.random_damage else coins
 
-    def scores(state: State, player: int, coins: torch.Tensor):
+    def scores(state: State, player: int, noise):
         """(root arms int32 [B, K, H, W], valid [B, K], scores float32
         [B, K], the ``B * K * R`` DFS stacks) of the first K root
         actions."""
         maxp = int(player)
         B = state.batch
+        coins, draws = noise if isinstance(noise, tuple) else (noise, None)
         od, ctx = init_enum(state, maxp)
         got = [next_action(od, ctx) for _ in range(K)]
         arms = torch.stack([g[0] for g in got], 1)
         valid = torch.stack([g[1] for g in got], 1)
         st1 = _issue_player(env, repeat_lanes(state, K), arms_to_action(
             sp, arms.flatten(0, 1), plain=plain), maxp)
-        st2, done2 = _advance(env, st1)
+        st2, done2 = _advance(env, st1, u01=None if draws is None
+                              else draws.u01(ADVANCE_EVENTS, st1.batch))
         _, vs, stk = inner(repeat_lanes(st2, R), maxp,
-                           coins.reshape(B * K * R, -1))
+                           coins.reshape(B * K * R, -1), draws)
         vs = vs.reshape(B, K, R)
         ev = eval_fn(st2, maxp).reshape(B, K, 1)
         vs = torch.where(done2.reshape(B, K, 1), ev, vs)
@@ -456,8 +485,8 @@ def idrt_minimax_randomized_bot(env: GridnetEnv, k_moves: int = 8,
         return (arms, valid, torch.where(valid, mean - std, float("-inf")),
                 stk)
 
-    def bot(state: State, player: int, coins: torch.Tensor) -> torch.Tensor:
-        arms, valid, score, _ = bot.scores(state, player, coins)
+    def bot(state: State, player: int, noise) -> torch.Tensor:
+        arms, valid, score, _ = bot.scores(state, player, noise)
         rows = torch.arange(state.batch, device=state.device)
         act = arms_to_action(sp, arms[rows, first_max(score)], plain=plain)
         can = (can_act(state, player) & ~env.engine.gameover(state)
@@ -480,7 +509,8 @@ def sampled_abcd_bot(env: GridnetEnv, k_moves: int = 8,
     K x K children played out with the playout policy on both sides for
     ``playout_len`` ticks as lanes of one batch, maximin with the first
     best.  ``noise``: RandomBiasedAI's uniforms float32 ``[2, K - 1, B, H,
-    W, 2]`` (this side's candidates, then the opponent's)."""
+    W, 2]`` (this side's candidates, then the opponent's), or where the
+    env needs the engine's draws the pair (uniforms, ``EngineNoise``)."""
     eval_fn = _default_eval(env, eval_fn)
     if playout_bot is None:
         playout_bot = worker_rush(env)
@@ -491,9 +521,12 @@ def sampled_abcd_bot(env: GridnetEnv, k_moves: int = 8,
                         rollout_bot=playout_bot, n_decisions=n_decisions)
     no_noise = [(None, None)] * cont.n_decisions
 
-    def draw(gen: torch.Generator, batch: int) -> torch.Tensor:
-        return torch.rand((2, K - 1, batch, H, W, 2), generator=gen,
-                          device=env.device)
+    def draw(gen: torch.Generator, batch: int):
+        u = torch.rand((2, K - 1, batch, H, W, 2), generator=gen,
+                       device=env.device)
+        if env.needs_draws:
+            return u, EngineNoise(env, gen)
+        return u
 
     def cands(state: State, pl: int, u: torch.Tensor) -> torch.Tensor:
         """[B, K, H, W, 7]: the playout policy's action, then K - 1
@@ -504,21 +537,30 @@ def sampled_abcd_bot(env: GridnetEnv, k_moves: int = 8,
         return torch.cat([playout_bot(state, pl)[:, None],
                           rnd.reshape(B, K - 1, H, W, 7)], 1)
 
-    def values(state: State, player: int, u: torch.Tensor):
+    def values(state: State, player: int, noise):
         """(this side's candidates [B, K, H, W, 7], the K x K playout
         values float32 [B, K, K])."""
         p = int(player)
         B = state.batch
+        u, draws = noise if isinstance(noise, tuple) else (noise, None)
         mine, theirs = cands(state, p, u[0]), cands(state, 1 - p, u[1])
         am = mine.repeat_interleave(K, 1).flatten(0, 1)
         ao = theirs.repeat(1, K, 1, 1, 1).flatten(0, 1)
         lanes = repeat_lanes(state, K * K)
         a0, a1 = (am, ao) if p == 0 else (ao, am)
-        s1 = env.advance(lanes, a0, a1)[2]
-        return mine, cont(s1, p, lanes.time, no_noise).reshape(B, K, K)
+        L = lanes.batch
+        if draws is None:
+            s1 = env.advance(lanes, a0, a1)[2]
+            v = cont(s1, p, lanes.time, no_noise)
+        else:
+            s1 = env.advance(lanes, a0, a1, draws.coins(L),
+                             draws.u01(env.step_cycles, L))[2]
+            v = cont(s1, p, lanes.time, no_noise,
+                     u01=draws.u01(cont.n_cycles, L))
+        return mine, v.reshape(B, K, K)
 
-    def bot(state: State, player: int, u: torch.Tensor) -> torch.Tensor:
-        mine, V = values(state, player, u)
+    def bot(state: State, player: int, noise) -> torch.Tensor:
+        mine, V = values(state, player, noise)
         rows = torch.arange(state.batch, device=state.device)
         act = mine[rows, first_max(V.amin(2))]
         can = can_act(state, player) & ~env.engine.gameover(state)

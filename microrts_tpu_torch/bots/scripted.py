@@ -1,6 +1,6 @@
 """Scripted bots on batched planes (port of ``microrts_tpu.bots.scripted``:
-``passive_bot``, ``random_bot``, the ``rush_bot`` family and its
-partially observable ``po_*`` rushes).
+``passive_bot``, ``random_bot``, ``random_biased_single_unit_bot``, the
+``rush_bot`` family and its partially observable ``po_*`` rushes).
 
 A bot is ``bot(state, player, u) -> int32 [B, H, W, 7]`` gridnet actions.
 Its randomness comes in as ``u``, float32 uniforms in [0, 1) of shape
@@ -10,19 +10,18 @@ deterministic and take no uniforms.  An ``Opponent`` pairs a bot with
 ``draw(gen, B)``, which makes the noise the bot reads (the trainer, the
 tournaments and the search bots draw through it).
 
-Not ported yet: ``random_biased_single_unit_bot`` and
-``distribution_bot``.
+Not ported yet: ``distribution_bot`` (it needs the learned models).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import kernels as KN
-from ..engine.kernel import pull, shift
+from ..engine.kernel import as_player, pull, shift
 from ..engine.types import ATTACK, HARVEST, INF, MOVE, PRODUCE, RETURN, State
 from ..env.gridnet import GridnetEnv
 from ..ops.fields import descend_direction_plain, distance_field_plain
@@ -82,6 +81,45 @@ def random_opponent(env: GridnetEnv, bias: float = 5.0) -> Opponent:
     """``random_bot(env, bias)`` as an opponent: two uniforms per cell,
     ``uniform(key, (H, W, 2))`` in the JAX package (scripted.py:71)."""
     return Opponent(random_bot(env, bias), uniform_draw(env))
+
+
+class SingleUnitNoise(NamedTuple):
+    """``random_biased_single_unit_bot``'s draws for ``B`` states: the
+    inner RandomBiasedAI's uniforms float32 ``[B, H, W, 2]`` (JAX: k0)
+    and the unit pick's ``[B, H, W]`` (k1)."""
+    u: torch.Tensor
+    r: torch.Tensor
+
+
+def random_biased_single_unit_bot(env: GridnetEnv, bias: float = 5.0):
+    """RandomBiasedSingleUnitAI (ai/RandomBiasedSingleUnitAI.java:76-110,
+    scripted.py:108-124): RandomBiasedAI's actions (the ``actor`` kernel
+    on CUDA tensors) kept for ONE idle own unit, the argmax of
+    ``where(can_act, r, -1)`` (the first in row-major order on a tie);
+    every other unit idles.  ``noise`` is a ``SingleUnitNoise``."""
+    inner = random_bot(env, bias)
+
+    def bot(state: State, player, noise: SingleUnitNoise) -> torch.Tensor:
+        a = inner(state, player, noise.u)
+        can = ((state.utype > 0) & ~state.busy
+               & (state.owner == as_player(player, state.device)))
+        score = torch.where(can, noise.r, -1.0).reshape(state.batch, -1)
+        chosen = torch.zeros_like(score, dtype=torch.bool).scatter_(
+            1, score.argmax(1, keepdim=True), True).reshape(can.shape)
+        return torch.where((chosen & can)[..., None], a, 0)
+
+    return bot
+
+
+def single_unit_opponent(env: GridnetEnv, bias: float = 5.0) -> Opponent:
+    """``random_biased_single_unit_bot`` as an opponent: its draws are a
+    ``SingleUnitNoise``."""
+    def draw(gen: torch.Generator, batch: int) -> SingleUnitNoise:
+        shape = (batch, env.h, env.w)
+        return SingleUnitNoise(
+            torch.rand(shape + (2,), generator=gen, device=env.device),
+            torch.rand(shape, generator=gen, device=env.device))
+    return Opponent(random_biased_single_unit_bot(env, bias), draw)
 
 
 def kth_legal(L: torch.Tensor, j: torch.Tensor) -> torch.Tensor:

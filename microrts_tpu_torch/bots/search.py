@@ -13,7 +13,10 @@ maximum, as ``jnp.argmax``).
 Each constructor returns a ``bots.scripted.Opponent``: ``draw(gen, B)``
 makes every uniform the bot reads, one tensor per use in the JAX key
 tree (the fields of ``MCNoise``, ``NaiveNoise`` and ``UCTNoise``), so a
-test can hand the port the draws of JAX's keys.
+test can hand the port the draws of JAX's keys.  Where the env needs the
+engine's draws (UTT v3's damage, CANCEL_RANDOM's coins under fog), the
+noise also carries them (``u01``, ``coins``; None otherwise): JAX draws
+them from the states' keys.
 
 ``monte_carlo_bot`` (MonteCarlo.java, flat MC), ``naive_sampling_bot``
 (hill climbing on joint actions) and ``uct_bot`` (DownsamplingUCT).
@@ -28,7 +31,7 @@ import torch
 from ..engine.types import State
 from ..env.gridnet import GridnetEnv
 from ..ops.evaluation import simple_sqrt_eval3
-from ..ops.playout import make_playout, playout_noise, repeat_lanes
+from ..ops.playout import _u, make_playout, playout_noise, repeat_lanes
 from .scripted import Opponent, random_bot
 
 
@@ -37,10 +40,15 @@ class MCNoise(NamedTuple):
     uniforms ``[B * K, H, W, 2]`` (JAX: ``keys[:K]``), the first tick's
     opponent uniforms and the playouts' ``[n_decisions, 2, L, H, W, 2]``
     over the ``L = B * K * n_eval`` playout lanes (JAX: ``split(key)`` of
-    each ``split(split(keys[-1], K)[k], n_eval)[e]``)."""
+    each ``split(split(keys[-1], K)[k], n_eval)[e]``).  ``u01``: the
+    damage uniforms float32 ``[step_cycles + n_cycles, L, H, W]`` of the
+    first tick's and the playout's cycles; ``coins``: the first tick's
+    bool ``[2, L, H, W, 4]``."""
     cand: torch.Tensor
     opp: torch.Tensor
     play: torch.Tensor
+    u01: Optional[torch.Tensor] = None
+    coins: Optional[torch.Tensor] = None
 
 
 class NaiveNoise(NamedTuple):
@@ -48,25 +56,44 @@ class NaiveNoise(NamedTuple):
     fresh candidate's uniforms ``[R, B, H, W, 2]`` (JAX: k1), the
     exploration coins ``[R, B, H, W, 1]`` (k2), the first tick's opponent
     uniforms ``[R, B, H, W, 2]`` and the playout's ``[R, n_decisions, 2,
-    B, H, W, 2]`` (k3)."""
+    B, H, W, 2]`` (k3); ``u01`` ``[R, step_cycles + n_cycles, B, H, W]``
+    and ``coins`` ``[R, 2, B, H, W, 4]`` as ``MCNoise``'s, per round."""
     fresh: torch.Tensor
     explore: torch.Tensor
     opp: torch.Tensor
     play: torch.Tensor
+    u01: Optional[torch.Tensor] = None
+    coins: Optional[torch.Tensor] = None
 
 
 class UCTNoise(NamedTuple):
     """``uct_bot``'s draws: the candidates' uniforms ``[B * K, H, W, 2]``
     (JAX: ``split(kc, K)``), and per round the first tick's opponent
     uniforms ``[R, B, H, W, 2]`` and the playout's ``[R, n_decisions, 2,
-    B, H, W, 2]`` (``split(kr, R)``)."""
+    B, H, W, 2]`` (``split(kr, R)``); ``u01`` and ``coins`` per round,
+    as ``NaiveNoise``'s."""
     cand: torch.Tensor
     opp: torch.Tensor
     play: torch.Tensor
+    u01: Optional[torch.Tensor] = None
+    coins: Optional[torch.Tensor] = None
 
 
 def _uniforms(env: GridnetEnv, gen, *shape) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=env.device)
+
+
+def engine_draws(env: GridnetEnv, gen, cycles: int, lanes: int,
+                 rounds: int):
+    """(u01, coins) of ``rounds`` first ticks and playouts of ``lanes``
+    lanes: the damage uniforms float32 ``[rounds, step_cycles + cycles,
+    lanes, H, W]`` and the first tick's coins bool ``[rounds, 2, lanes,
+    H, W, 4]``, each None where the env needs none."""
+    u01 = [env.draw_u01(gen, env.step_cycles + cycles, lanes)
+           for _ in range(rounds)]
+    coins = [env.draw_coins(gen, lanes) for _ in range(rounds)]
+    return (None if u01[0] is None else torch.stack(u01),
+            None if coins[0] is None else torch.stack(coins))
 
 
 def _default_eval(env: GridnetEnv, eval_fn: Optional[Callable]) -> Callable:
@@ -77,14 +104,20 @@ def _default_eval(env: GridnetEnv, eval_fn: Optional[Callable]) -> Callable:
 
 
 def _playout_value(env, rollout, cont, state: State, cand: torch.Tensor,
-                   player: int, u_opp: torch.Tensor, play) -> torch.Tensor:
+                   player: int, u_opp: torch.Tensor, play,
+                   u01: Optional[torch.Tensor] = None,
+                   coins: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The candidate's first tick against the rollout policy through the
     env's own step (NONE(1) pads, search.py:58-61), then the shared
-    fast-forward playout: float32 ``[B]``."""
+    fast-forward playout: float32 ``[B]``.  ``u01``: the first tick's
+    then the playout's damage uniforms; ``coins``: the first tick's."""
     opp = rollout(state, 1 - player, u_opp)
     a0, a1 = (cand, opp) if player == 0 else (opp, cand)
-    s = env.advance(state, a0, a1)[2]
-    return cont(s, player, state.time, play)
+    C = env.step_cycles
+    s = env.advance(state, a0, a1, coins,
+                    None if u01 is None else u01[:C])[2]
+    return cont(s, player, state.time, play,
+                u01=None if u01 is None else u01[C:])
 
 
 def _pick(cands: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -113,7 +146,9 @@ def monte_carlo_bot(env: GridnetEnv, n_candidates: int = 12,
         L = batch * K * n_eval
         return MCNoise(_uniforms(env, gen, batch * K, H, W, 2),
                        _uniforms(env, gen, L, H, W, 2),
-                       playout_noise(env, gen, cont.n_decisions, L))
+                       playout_noise(env, gen, cont.n_decisions, L),
+                       *(_u(x, 0) for x in engine_draws(
+                           env, gen, cont.n_cycles, L, 1)))
 
     def bot(state: State, player: int, noise: MCNoise) -> torch.Tensor:
         B = state.batch
@@ -122,7 +157,7 @@ def monte_carlo_bot(env: GridnetEnv, n_candidates: int = 12,
         lanes = repeat_lanes(sk, n_eval)
         v = _playout_value(env, rollout, cont, lanes,
                            cands.repeat_interleave(n_eval, 0), player,
-                           noise.opp, noise.play)
+                           noise.opp, noise.play, noise.u01, noise.coins)
         best = v.reshape(B, K, n_eval).mean(2).argmax(1)
         return _pick(cands.reshape(B, K, H, W, 7), best)
 
@@ -149,7 +184,8 @@ def naive_sampling_bot(env: GridnetEnv, n_rounds: int = 16,
                             for _ in range(R)])
         return NaiveNoise(_uniforms(env, gen, R, batch, H, W, 2),
                           _uniforms(env, gen, R, batch, H, W, 1),
-                          _uniforms(env, gen, R, batch, H, W, 2), play)
+                          _uniforms(env, gen, R, batch, H, W, 2), play,
+                          *engine_draws(env, gen, cont.n_cycles, batch, R))
 
     def bot(state: State, player: int, noise: NaiveNoise) -> torch.Tensor:
         B, dev = state.batch, state.device
@@ -161,7 +197,8 @@ def naive_sampling_bot(env: GridnetEnv, n_rounds: int = 16,
             keep_best = ~explore if r > 0 else torch.zeros_like(explore)
             cand = torch.where(keep_best, best_a, fresh)
             v = _playout_value(env, rollout, cont, state, cand, player,
-                               noise.opp[r], noise.play[r])
+                               noise.opp[r], noise.play[r],
+                               _u(noise.u01, r), _u(noise.coins, r))
             improve = v > best_v
             best_a = torch.where(improve[:, None, None, None], cand, best_a)
             best_v = torch.where(improve, v, best_v)
@@ -201,7 +238,8 @@ def uct_bot(env: GridnetEnv, n_candidates: int = 8, n_rounds: int = 24,
         play = torch.stack([playout_noise(env, gen, cont.n_decisions, batch)
                             for _ in range(R)])
         return UCTNoise(_uniforms(env, gen, batch * K, H, W, 2),
-                        _uniforms(env, gen, R, batch, H, W, 2), play)
+                        _uniforms(env, gen, R, batch, H, W, 2), play,
+                        *engine_draws(env, gen, cont.n_cycles, batch, R))
 
     def bot(state: State, player: int, noise: UCTNoise) -> torch.Tensor:
         B, dev = state.batch, state.device
@@ -213,7 +251,8 @@ def uct_bot(env: GridnetEnv, n_candidates: int = 8, n_rounds: int = 24,
         for r in range(R):
             arm = ucb1(visits, values, c_uct).argmax(1)
             v = _playout_value(env, rollout, cont, state, cands[rows, arm],
-                               player, noise.opp[r], noise.play[r])
+                               player, noise.opp[r], noise.play[r],
+                               _u(noise.u01, r), _u(noise.coins, r))
             visits[rows, arm] += 1
             values[rows, arm] += (v + 1.0) * 0.5
         return _pick(cands, visits.argmax(1))

@@ -24,7 +24,9 @@ the plain versions beside each kernel.
 
 Randomness enters as tensors, one per use in JAX's key tree, drawn on
 demand (``MCTSNoise``, ``UCTTreeNoise``): a decision's Gumbel noise at
-the JAX defaults would be gigabytes.
+the JAX defaults would be gigabytes.  Under UTT v3's random damage the
+noise also draws each cycle's uniforms (``u01``): four a descent step's
+advance and the playout's; JAX draws them from the states' keys.
 
 ``search`` takes a per-game iteration count (int32 ``[B]``): a game past
 its count is not in the walk's ``live`` lanes, and the descent, the
@@ -88,12 +90,18 @@ def _issue_player(env: GridnetEnv, s: State, action, player) -> State:
     return env.engine.issue_env(s, env.decode(s, action, player))
 
 
-def _advance(env: GridnetEnv, s: State, max_wait: int = 512):
+ADVANCE_EVENTS = 4
+
+
+def _advance(env: GridnetEnv, s: State, max_wait: int = 512,
+             u01: Optional[torch.Tensor] = None):
     """Advance to the next decision point or game end (NaiveMCTSNode.java
-    :46-52) with four event steps; a state still frozen after them is
-    terminal.  Returns (state, done bool ``[B]``)."""
+    :46-52) with four event steps (``u01``: their damage uniforms float32
+    ``[4, B, H, W]``); a state still frozen after them is terminal.
+    Returns (state, done bool ``[B]``)."""
     s, done = fast_forward(env, s, env.engine.gameover(s),
-                           max_skip=max_wait, max_events=4)
+                           max_skip=max_wait, max_events=ADVANCE_EVENTS,
+                           u01=u01)
     stuck = ~(can_act(s, 0) | can_act(s, 1))
     return s, done | (stuck & ~done)
 
@@ -122,8 +130,9 @@ class MCTSNoise:
     """NaiveMCTS's draws for one decision of ``B`` games, made on demand
     from ``gen``: ``step(it, d)`` (a ``TreeStep``) for descent step ``d``
     of iteration ``it``, then ``play(it)``, the playout's uniforms float32
-    ``[n_decisions, 2, B * n_eval, H, W, 2]`` (JAX: ``kp``).  Calls must
-    come in the search's order."""
+    ``[n_decisions, 2, B * n_eval, H, W, 2]`` (JAX: ``kp``).  Under
+    random damage, ``u01(cycles, lanes)``: the damage uniforms of the
+    next ``cycles`` cycles.  Calls must come in the search's order."""
 
     def __init__(self, env: GridnetEnv, gen: torch.Generator, batch: int,
                  n_children: int, n_decisions: int, n_eval: int = 1):
@@ -133,6 +142,9 @@ class MCTSNoise:
 
     def _u(self, *shape):
         return torch.rand(shape, generator=self.gen, device=self.env.device)
+
+    def u01(self, cycles: int, lanes: int) -> torch.Tensor:
+        return self.env.draw_u01(self.gen, cycles, lanes)
 
     def step(self, it: int, d: int) -> TreeStep:
         B, C, env = self.batch, self.C, self.env
@@ -152,7 +164,7 @@ class UCTTreeNoise:
     demand from ``gen``: ``root()``, the root's K candidate draws float32
     Gumbels ``[B, K, H, W, A]`` (JAX: ``split(kc, K)``); ``step(it, d)``,
     the K candidate draws of the node a descent step may expand (JAX:
-    ``split(kc2, K)``); ``play(it)`` as ``MCTSNoise.play``."""
+    ``split(kc2, K)``); ``play(it)`` and ``u01`` as ``MCTSNoise``'s."""
 
     def __init__(self, env: GridnetEnv, gen: torch.Generator, batch: int,
                  n_candidates: int, n_decisions: int, n_eval: int = 1):
@@ -171,6 +183,14 @@ class UCTTreeNoise:
     def play(self, it: int) -> torch.Tensor:
         return playout_noise(self.env, self.gen, self.n_dec,
                              self.batch * self.n_eval)
+
+    u01 = MCTSNoise.u01
+
+
+def _cycle_u01(env: GridnetEnv, noise, cycles: int, lanes: int):
+    """``noise.u01(cycles, lanes)`` under random damage, else None (and
+    nothing asked of ``noise``)."""
+    return noise.u01(cycles, lanes) if env.random_damage else None
 
 
 # ======================================================================
@@ -595,11 +615,13 @@ def naive_mcts_bot(env: GridnetEnv, n_playouts: int = 64,
                     (tree.tvis, tree.tacc, tree.nvis), w.cur, w.player,
                     maxp, el, gw, ucb_c, plain=env.engine.plain)
                 st1 = _issue_player(env, w.st, action, w.player)
-                st2, done2 = _advance(env, st1)
+                st2, done2 = _advance(env, st1, u01=_cycle_u01(
+                    env, noise, ADVANCE_EVENTS, B))
                 mcts_descend(env, tree, w, arms, st2, done2,
                              can_act(st2, maxp), can_act(st2, 1 - maxp), sn,
                              maxp, e0, eg, D)
-            v = playout(w.leaf_st, maxp, t0, noise.play(it), live)
+            v = playout(w.leaf_st, maxp, t0, noise.play(it), live,
+                        _cycle_u01(env, noise, playout.n_cycles, B * n_eval))
             mcts_backprop(env, tree, w, v)
         return tree
 
@@ -889,14 +911,17 @@ def uct_tree_bot(env: GridnetEnv, n_playouts: int = 64,
             for d in range(D + 2):
                 slot, action = uct_select(env, tree, w, maxp, c_uct, fpu)
                 st1 = _issue_player(env, w.st, action, w.player)
-                st2, done2 = _advance(env, st1)
+                st2, done2 = _advance(env, st1, u01=_cycle_u01(
+                    env, noise, ADVANCE_EVENTS, B))
                 can_max, can_min = can_act(st2, maxp), can_act(st2, 1 - maxp)
                 cands = sample_cands(
                     st2, torch.where(can_max, maxp, 1 - maxp).to(I32),
                     noise.step(it, d))
                 uct_descend(env, tree, w, slot, st2, done2, can_max,
                             can_min, cands, maxp, D)
-            v = playout(w.leaf_st, maxp, t0, noise.play(it))
+            v = playout(w.leaf_st, maxp, t0, noise.play(it),
+                        u01=_cycle_u01(env, noise, playout.n_cycles,
+                                       B * n_eval))
             mcts_backprop(env, tree, w, v)
         return tree
 

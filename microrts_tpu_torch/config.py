@@ -108,13 +108,13 @@ MINIMAX_BOTS = tuple(_MINIMAX)
 # levels around the default NaiveMCTS, and tree reuse
 _BELIEVE = dict(BS1_NaiveMCTS=1, BS2_NaiveMCTS=2, BS3_NaiveMCTS=3)
 STATEFUL_BOTS = tuple(_BELIEVE) + ("ContinuingNaiveMCTS",)
-PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI") + RUSH_BOTS \
+PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI",
+               "RandomBiasedSingleUnitAI") + RUSH_BOTS \
     + PO_BOTS + SEARCH_BOTS + TREE_BOTS + MINIMAX_BOTS + STATEFUL_BOTS
 
 # names the JAX package has and the port not yet: the ROADMAP.md queue 1
 # item that ports them
 _NOT_PORTED = dict(
-    RandomBiasedSingleUnitAI="item 4 (bots/scripted.py)",
     UnitActionProbabilityDistributionAI="item 11 (learned models)",
     InformedNaiveMCTS="item 11 (learned models)",
     **{n: "item 10 (search bots)" for n in (
@@ -135,6 +135,8 @@ def make_bot(name: str, env):
         return S.random_opponent(env, 1.0)
     if name == "RandomBiasedAI":
         return S.random_opponent(env, 5.0)
+    if name == "RandomBiasedSingleUnitAI":
+        return S.single_unit_opponent(env, 5.0)
     if name in _RUSH:
         return S.Opponent(getattr(S, _RUSH[name])(env))
     if name in _PO_RUSH:

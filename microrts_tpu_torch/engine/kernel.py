@@ -14,8 +14,9 @@ CANCEL_BOTH / CANCEL_RANDOM / CANCEL_ALTERNATING chains.  CANCEL_RANDOM's
 coins are an input (bool ``[B, H, W, 4]``, indexed by the sorted claimant
 slot, as the JAX package draws them from ``fold_in(key, order_ctr)``).
 ``issue_env`` is its fast path for candidates that came through the env
-decode under full observation.  UTT v3's random damage is not ported and
-raises.
+decode under full observation.  UTT v3's random damage draws one uniform
+per attacker cell and cycle; the uniforms are an input of ``cycle``
+(float32 ``[B, H, W]``, drawn in JAX from ``split(key)`` in ``cycle``).
 """
 
 from __future__ import annotations
@@ -479,27 +480,46 @@ class Engine:
     # ------------------------------------------------------------------
     # cycle (GameState.cycle :553-571 + UnitAction.execute :338-465)
 
-    def cycle(self, state: State, active: Optional[torch.Tensor] = None
+    def cycle(self, state: State, active: Optional[torch.Tensor] = None,
+              u01: Optional[torch.Tensor] = None
               ) -> Tuple[State, torch.Tensor]:
         """One game tick (kernel.py:508-716); returns (state', gameover).
         With ``active`` (bool ``[B]``), the envs whose flag is off keep
         their state and read gameover False (the playouts' frozen lanes).
-        UTT v3's random damage is not ported: both paths raise."""
+        ``u01`` (float32 ``[B, H, W]``, each attacker cell's uniform) draws
+        UTT v3's damage, ``dmin + int(u01 * (dmax - dmin + 1))`` where
+        ``dmax > dmin`` (kernel.py:536-545); a UTT with random damage
+        needs it and one without refuses it."""
         if self._use_kernel(state.utype):
-            return KN.CYCLE(self.cfg, state, active)
-        return self.cycle_plain(state, active)
+            return KN.CYCLE(self.cfg, state, active, u01)
+        return self.cycle_plain(state, active, u01)
 
-    def cycle_plain(self, state: State, active: Optional[torch.Tensor] = None
+    def _check_u01(self, state: State, u01: Optional[torch.Tensor]) -> None:
+        """Raise unless ``u01`` is what ``cycle`` needs: None under
+        deterministic damage, else float32 ``[B, H, W]``."""
+        if self.cfg.det_damage:
+            if u01 is not None:
+                raise ValueError("cycle: u01 given, but the UTT's damage is "
+                                 "deterministic")
+            return
+        if u01 is None:
+            raise ValueError("cycle: random damage (UTT v3) needs u01")
+        shape = (state.batch, self.H, self.W)
+        if u01.dtype != torch.float32 or tuple(u01.shape) != shape:
+            raise ValueError(f"cycle: u01 must be float32 {shape}, got "
+                             f"{u01.dtype} {tuple(u01.shape)}")
+
+    def cycle_plain(self, state: State, active: Optional[torch.Tensor] = None,
+                    u01: Optional[torch.Tensor] = None
                     ) -> Tuple[State, torch.Tensor]:
-        new, done = self._cycle_plain(state)
+        self._check_u01(state, u01)
+        new, done = self._cycle_plain(state, u01)
         if active is None:
             return new, done
         return state.select(active, new), done & active
 
-    def _cycle_plain(self, state: State) -> Tuple[State, torch.Tensor]:
-        if not self.cfg.det_damage:
-            raise NotImplementedError(
-                "cycle: random damage (UTT v3) is not ported yet")
+    def _cycle_plain(self, state: State, u01: Optional[torch.Tensor]
+                     ) -> Tuple[State, torch.Tensor]:
         H, W, T, R = self.H, self.W, self.T, self.R
         t, exists = self._ctx(state)
         tp = self._tprop
@@ -528,6 +548,10 @@ class Engine:
 
         # attacks: order-filtered damage sums over the attack box
         dmg = tp("min_damage", t)
+        if u01 is not None:
+            dmax = tp("max_damage", t)
+            dmg = torch.where(dmax > dmg, dmg + (u01 * (dmax - dmg + 1)).to(
+                I32), dmg)
         xs, ys = iota(H, W, dev)
         dxp = s.atx.to(I32) - xs
         dyp = s.aty.to(I32) - ys

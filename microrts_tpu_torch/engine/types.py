@@ -10,7 +10,8 @@ every function that returns a ``State`` stores back with ``canon()``.
 The JAX ``State.key`` field has no counterpart: randomness enters the port
 as tensors made by the caller.  Of the engine, CANCEL_RANDOM's coins are
 such an input of ``Engine.issue`` (bool ``[B, H, W, 4]``, drawn in JAX
-from ``fold_in(key, order_ctr)``); UTT v3's damage draw is not ported yet.
+from ``fold_in(key, order_ctr)``), and UTT v3's damage uniforms one of
+``Engine.cycle`` (float32 ``[B, H, W]``, drawn in JAX from ``split(key)``).
 """
 
 from __future__ import annotations
@@ -257,6 +258,20 @@ def state_from_numpy(leaves: Dict[str, np.ndarray], device="cpu") -> State:
         out[f] = torch.from_numpy(np.array(a)).to(
             device=device, dtype=dt)
     return State(**out)
+
+
+def snapshot(state: State, env: int = 0):
+    """Order-free comparable fingerprint of env ``env`` of the batch
+    (types.py:226-239 of the JAX package): the sorted (owner, type,
+    x, y, carried, hp) of its units and the two players' resources."""
+    utype, owner, carried, hp = (
+        getattr(state, f)[env].cpu().numpy()
+        for f in ("utype", "owner", "carried", "hp"))
+    ys, xs = np.nonzero(utype > 0)
+    units = [(int(owner[y, x]), int(utype[y, x]) - 1, int(x), int(y),
+              int(carried[y, x]), int(hp[y, x])) for y, x in zip(ys, xs)]
+    return (tuple(sorted(units)),
+            tuple(int(v) for v in state.resources[env].cpu().numpy()))
 
 
 def state_to_numpy(state: State) -> Dict[str, np.ndarray]:

@@ -16,7 +16,12 @@ issue), and observations are the 8 PO planes.  As in the JAX package, the
 PO step ignores ``frame_skip`` and ``masks`` read the full state;
 ``step_vs`` has no PO branch.
 
-Not ported yet: the ``closertoenemy*`` rewards (they raise).
+Randomness enters as tensors, never from a global RNG: under UTT v3's
+random damage each cycle reads float32 uniforms ``[B, H, W]`` and under
+fog with CANCEL_RANDOM each issue reads bool coins ``[B, H, W, 4]``
+(JAX draws both from ``State.key``).  ``advance``/``step``/``step_vs``
+take them as ``u01``/``coins`` or draw them from a ``gen`` argument
+(``draw_u01``, ``draw_coins``); an env that needs neither draws nothing.
 """
 
 from __future__ import annotations
@@ -41,14 +46,14 @@ REWARD_NAMES = (
     "winloss", "resourcegather", "produceworker", "producebuilding",
     "producecombat", "attack", "closertoenemybase", "closertoenemyunit",
 )
-PORTED_REWARDS = REWARD_NAMES[:6]
+PORTED_REWARDS = REWARD_NAMES
 
 
 @dataclasses.dataclass(frozen=True)
 class EnvConfig:
     engine: EngineConfig
     max_produce_scan: int = 16
-    reward_fns: Tuple[str, ...] = PORTED_REWARDS
+    reward_fns: Tuple[str, ...] = REWARD_NAMES[:6]
     # type-name ids for name-based rewards (-1 = absent in this UTT)
     worker_id: int = -1
     base_id: int = -1
@@ -66,14 +71,14 @@ class GridnetEnv:
     PyTorch versions of the kernels on any device (their oracle)."""
 
     def __init__(self, map_path: str, utt: Optional[UnitTypeTable] = None,
-                 reward_fns: Sequence[str] = PORTED_REWARDS,
+                 reward_fns: Sequence[str] = REWARD_NAMES[:6],
                  max_produce_scan: int = 16, partial_obs: bool = False,
                  frame_skip: int = 1, device="cuda", plain: bool = False,
                  pgs: Optional[PhysicalGameState] = None):
         """``pgs`` (a loaded map) stands in for ``map_path``'s file."""
         for name in reward_fns:
-            if name not in PORTED_REWARDS:
-                raise NotImplementedError(f"reward {name!r} is not ported yet")
+            if name not in REWARD_NAMES:
+                raise ValueError(f"unknown reward fn {name!r}")
         self.device = resolve_device(device)
         self.partial_obs = partial_obs
         self.frame_skip = frame_skip
@@ -99,6 +104,51 @@ class GridnetEnv:
     @property
     def num_rewards(self) -> int:
         return len(self.cfg.reward_fns)
+
+    # ------------------------------------------------------------------
+    # the engine's random inputs
+
+    @property
+    def random_damage(self) -> bool:
+        """Every cycle draws damage uniforms (UTT v3)."""
+        return not self.cfg.engine.det_damage
+
+    @property
+    def random_coins(self) -> bool:
+        """Every step's two full issues draw CANCEL_RANDOM coins (fog of
+        war and the CANCEL_RANDOM policy)."""
+        return self.partial_obs and self.cfg.engine.move_conflict_policy == 2
+
+    @property
+    def needs_draws(self) -> bool:
+        """The env's steps read draws: ``random_damage`` or
+        ``random_coins``."""
+        return self.random_damage or self.random_coins
+
+    @property
+    def step_cycles(self) -> int:
+        """The cycles of one ``advance``: ``frame_skip``, 1 under fog."""
+        return 1 if self.partial_obs else self.frame_skip
+
+    def draw_u01(self, gen: torch.Generator, cycles: int,
+                 batch: int) -> Optional[torch.Tensor]:
+        """The damage uniforms of ``cycles`` cycles of ``batch`` envs,
+        float32 ``[cycles, batch, H, W]`` from ``gen``; None (nothing
+        drawn) under deterministic damage."""
+        if not self.random_damage:
+            return None
+        return torch.rand((cycles, batch, self.h, self.w), generator=gen,
+                          device=self.device)
+
+    def draw_coins(self, gen: torch.Generator,
+                   batch: int) -> Optional[torch.Tensor]:
+        """The two issues' CANCEL_RANDOM coins of one step, bool ``[2,
+        batch, H, W, 4]`` from ``gen``; None (nothing drawn) unless
+        ``random_coins``."""
+        if not self.random_coins:
+            return None
+        return torch.rand((2, batch, self.h, self.w, 4), generator=gen,
+                          device=self.device) < 0.5
 
     def action_nvec(self):
         d = 2 * self.cfg.engine.max_range + 1
@@ -242,53 +292,72 @@ class GridnetEnv:
 
     # ------------------------------------------------------------------
     def step(self, state: State, a0: torch.Tensor, a1: torch.Tensor,
-             coins=None):
+             coins=None, u01=None, gen: Optional[torch.Generator] = None):
         """Self-play step (JNIGridnetClientSelfPlay.gameStep :159-190):
         decode p0 -> issue -> decode p1 against the post-issue state ->
         issue -> cycle (``frame_skip`` times) -> rewards.  Returns
-        (state', rewards float32 [B, 2, NR], done bool [B]).  ``coins``:
-        see ``advance``."""
-        c0, c1, state2, done = self.advance(state, a0, a1, coins)
+        (state', rewards float32 [B, 2, NR], done bool [B]).  ``coins``,
+        ``u01`` and ``gen``: see ``advance``."""
+        c0, c1, state2, done = self.advance(state, a0, a1, coins, u01, gen)
         return state2, self.rewards(state, c0, c1, state2), done
 
     def advance(self, state: State, a0: torch.Tensor, a1: torch.Tensor,
-                coins=None):
+                coins=None, u01=None, gen: Optional[torch.Generator] = None):
         """The step up to its epilogue: (candidates p0, candidates p1,
         state after the cycles, gameover bool [B]).  Under partial
         observability: each player decodes with its view's claims, both
-        issues are the full ``issue`` (``coins``: the two issues' bool
-        ``[B, H, W, 4]`` coins, which CANCEL_RANDOM needs) and one cycle
-        (gridnet.py:357-378)."""
+        issues are the full ``issue`` and one cycle (gridnet.py:357-378).
+        ``u01`` (float32 ``[step_cycles, B, H, W]``, one slice a cycle)
+        draws UTT v3's damage; ``coins`` (the two issues' bool ``[B, H, W,
+        4]``, e.g. ``[2, B, H, W, 4]``) decide CANCEL_RANDOM's conflicts
+        under fog.  What the env needs and is not given is drawn from
+        ``gen``; without it, the engine raises."""
         eng = self.engine
+        B = state.batch
+        if gen is not None:
+            if u01 is None:
+                u01 = self.draw_u01(gen, self.step_cycles, B)
+            if coins is None:
+                coins = self.draw_coins(gen, B)
+
+        def u(i):
+            return None if u01 is None else u01[i]
+
         if self.partial_obs:
             k0, k1 = coins if coins is not None else (None, None)
             c0 = self.decode(state, a0, 0, view=self.po_view(state, 0))
             state1 = eng.issue(state, c0, k0)
             c1 = self.decode(state1, a1, 1, view=self.po_view(state1, 1))
-            state2, done = eng.cycle(eng.issue(state1, c1, k1))
+            state2, done = eng.cycle(eng.issue(state1, c1, k1), u01=u(0))
             return c0, c1, state2, done
         c0 = self.decode(state, a0, 0)
         state1 = eng.issue_env(state, c0)
         c1 = self.decode(state1, a1, 1)
         state2 = eng.issue_env(state1, c1)
-        state2, done = eng.cycle(state2)
-        for _ in range(self.frame_skip - 1):
-            state2, d2 = eng.cycle(state2)
+        state2, done = eng.cycle(state2, u01=u(0))
+        for i in range(1, self.frame_skip):
+            state2, d2 = eng.cycle(state2, u01=u(i))
             done = done | d2
         return c0, c1, state2, done
 
-    def step_vs(self, state: State, a0: torch.Tensor, bot_fn):
+    def step_vs(self, state: State, a0: torch.Tensor, bot_fn, u01=None,
+                gen: Optional[torch.Generator] = None):
         """Step with an external player-0 action and a scripted opponent
         (JNIGridnetClient.gameStep; gridnet.py:400-418 of the JAX
         package): ``a0`` is decoded and issued, ``bot_fn(state1, 1)`` (a
         gridnet action int32 ``[B, H, W, 7]``) is decoded against the
-        post-issue state and issued, then one ``cycle``.  Returns (state',
-        player 0's rewards float32 [B, NR], done bool [B])."""
+        post-issue state and issued, then one ``cycle`` (its damage
+        uniforms ``u01`` float32 ``[1, B, H, W]``, or drawn from
+        ``gen``).  Returns (state', player 0's rewards float32 [B, NR],
+        done bool [B])."""
         eng = self.engine
+        if u01 is None and gen is not None:
+            u01 = self.draw_u01(gen, 1, state.batch)
         c0 = self.decode(state, a0, 0)
         state1 = eng.issue_env(state, c0)
         c1 = self.decode(state1, bot_fn(state1, 1), 1)
-        state2, done = eng.cycle(eng.issue_env(state1, c1))
+        state2, done = eng.cycle(eng.issue_env(state1, c1),
+                                 u01=None if u01 is None else u01[0])
         return state2, self.rewards(state, c0, c1, state2)[:, 0], done
 
     def rewards(self, pre: State, c0: Candidates, c1: Candidates,
@@ -456,4 +525,38 @@ class GridnetEnv:
             pos = (ok & occ & (own == 1 - me)).sum((1, 2), dtype=I32)
             neg = (ok & occ & (own == me)).sum((1, 2), dtype=I32)
             return (pos - neg).to(f32)
+        if name in ("closertoenemybase", "closertoenemyunit"):
+            return self._closer_reward(name, pre, after, me)
         raise ValueError(f"unknown reward fn {name!r}")
+
+    def _closer_reward(self, name, pre, after, me):
+        """The drop in the least float32 Euclidean distance from ``me``'s
+        mobile units (Worker, Light, Heavy, Ranged) to the first target in
+        row-major order on the pre-step board (an enemy base, or any enemy
+        unit), pre vs post step; 0 without a target or where either board
+        has no mobile unit (gridnet.py:555-584)."""
+        cfg = self.cfg
+        H, W = self.h, self.w
+        xs, ys = (v.to(torch.float32) for v in iota(H, W, pre.device))
+        if name == "closertoenemybase":
+            tgt = (pre.utype - 1 == cfg.base_id) & (pre.owner == 1 - me)
+        else:
+            tgt = (pre.utype > 0) & (pre.owner == 1 - me)
+        flat = tgt.reshape(pre.batch, -1)
+        has = flat.any(1)
+        idx = flat.to(torch.uint8).argmax(1).to(I32)   # the first True
+        bx = (idx % W).to(torch.float32)[:, None, None]
+        by = (idx // W).to(torch.float32)[:, None, None]
+        d = torch.sqrt((xs - bx) ** 2 + (ys - by) ** 2)
+
+        def min_dist(state):
+            t = state.utype - 1
+            mobile = ((state.utype > 0) & (state.owner == me)
+                      & ((t == cfg.worker_id) | (t == cfg.light_id)
+                         | (t == cfg.heavy_id) | (t == cfg.ranged_id)))
+            return torch.where(mobile, d, float("inf")).amin((1, 2))
+
+        d_old, d_new = min_dist(pre), min_dist(after)
+        r = torch.where(torch.isfinite(d_old) & torch.isfinite(d_new),
+                        d_old - d_new, 0.0)
+        return torch.where(has, r, 0.0).to(torch.float32)

@@ -4,7 +4,9 @@ The maps of a pool are padded to one common (H, W) with wall borders,
 stacked into a bank of initial states, and each env of the batch carries
 a map index (round-robin), so one step serves a heterogeneous pool and
 auto-reset restores each env's own map.  On CUDA tensors the splice reads
-each env's own bank row (the ``splice_obs`` kernel's batched init).
+each env's own bank row (the ``splice_obs`` kernel's batched init).  The
+step is ``VecGridnetEnv.step``: it passes the engine's draws (``u01``,
+``coins``, ``gen``) to the env; like the JAX pool, it has no quarantine.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from ..engine.pgs import TERRAIN_WALL, PhysicalGameState
 from ..engine.types import FIELD_DTYPES, State
 from ..engine.utt import UnitTypeTable
-from .gridnet import PORTED_REWARDS, GridnetEnv
+from .gridnet import REWARD_NAMES, GridnetEnv
 from .vec import VecGridnetEnv
 
 
@@ -44,7 +46,7 @@ class MapPoolVecEnv(VecGridnetEnv):
 
     def __init__(self, map_paths: Sequence[str], num_envs: int,
                  utt: Optional[UnitTypeTable] = None, max_steps: int = 5000,
-                 reward_fns=PORTED_REWARDS, partial_obs: bool = False,
+                 reward_fns=REWARD_NAMES[:6], partial_obs: bool = False,
                  device="cuda", plain: bool = False):
         utt = utt if utt is not None else UnitTypeTable(2)
         pgss = [PhysicalGameState.load(p, utt) for p in map_paths]

@@ -18,13 +18,19 @@ that use it (``index_select`` of the states, ``index_copy_`` of its
 actions), and bots without lanes are skipped: the same trajectories as
 JAX's ``lax.switch``.  ``chunk`` is only the interval between the host's
 checks that every lane is done.
+
+Where the env needs the engine's draws (UTT v3's damage uniforms for the
+frame's cycles, CANCEL_RANDOM's coins under fog for its step), each frame
+draws them (``frame_draws``) from the generator before the bots' noise,
+or takes them from ``noise(frame, None, None, None)``; JAX draws them from
+the states' keys inside its jitted loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +40,43 @@ from ..env.gridnet import GridnetEnv
 from ..ops.playout import fast_forward
 
 CHUNK = 256   # frames between the host's all-done checks
+FF_EVENTS = 2  # the event steps of a frame's fast_forward
+
+
+class FrameDraws(NamedTuple):
+    """The engine's draws of one decision frame of ``B`` games: the
+    damage uniforms float32 ``[FF_EVENTS + step_cycles, B, H, W]`` of the
+    frame's ``fast_forward`` and then its step (None under deterministic
+    damage), and the step's coins bool ``[2, B, H, W, 4]`` (None unless
+    the env's ``random_coins``)."""
+    u01: Optional[torch.Tensor]
+    coins: Optional[torch.Tensor]
+
+
+def frame_draws(env: GridnetEnv, gen: torch.Generator,
+                batch: int) -> Optional[FrameDraws]:
+    """One frame's ``FrameDraws`` from ``gen``; None (nothing drawn) when
+    the env needs no draws."""
+    if not env.needs_draws:
+        return None
+    return FrameDraws(env.draw_u01(gen, FF_EVENTS + env.step_cycles, batch),
+                      env.draw_coins(gen, batch))
+
+
+def frame_step(env: GridnetEnv, s: State, done, max_cycles: int,
+               fd: Optional[FrameDraws]):
+    """A frame's coast (``fast_forward``) with its draws.  Returns (a
+    function stepping the env from the bots' actions with the frame's
+    draws, the coasted state, its done flags)."""
+    u = None if fd is None else fd.u01
+    s, d_ff = fast_forward(env, s, done, t_end=max_cycles,
+                           max_events=FF_EVENTS,
+                           u01=None if u is None else u[:FF_EVENTS])
+
+    def advance(s, a0, a1):
+        return env.advance(s, a0, a1, None if fd is None else fd.coins,
+                           None if u is None else u[FF_EVENTS:])[2:]
+    return advance, s, d_ff
 
 
 def _index_state(s: State, idx: torch.Tensor) -> State:
@@ -94,15 +137,20 @@ def _games_fn(env: GridnetEnv, bots: Sequence, max_cycles: int,
         done = torch.zeros(B, dtype=torch.bool, device=dev)
         winner = torch.full((B,), -1, dtype=torch.int32, device=dev)
         frame = 0
+        draws = env.needs_draws
         while frame < max_cycles:
             for _ in range(min(chunk, max_cycles - frame)):
-                s, d_ff = fast_forward(env, s, done, t_end=max_cycles)
+                fd = None
+                if draws:
+                    fd = (noise(frame, None, None, None) if noise is not None
+                          else frame_draws(env, gen, B))
+                advance, s, d_ff = frame_step(env, s, done, max_cycles, fd)
                 winner = torch.where(done, winner, torch.where(
                     d_ff, eng.winner(s), -1))
                 done = done | d_ff | (s.time >= max_cycles)
                 a0 = act(s, 0, g0, frame, gen, noise)
                 a1 = act(s, 1, g1, frame, gen, noise)
-                s2, done2 = env.advance(s, a0, a1)[2:]
+                s2, done2 = advance(s, a0, a1)
                 winner = torch.where(done, winner, torch.where(
                     done2, eng.winner(s2), -1))
                 s = s2.select(done, s)

@@ -10,7 +10,7 @@ The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
 ``RUSH``, ``EVENT_JUMP``, ``EVALUATE``, ``ARM_SAMPLE``,
 ``ARMS_TO_ACTION``, ``MCTS_DESCEND``, ``MCTS_BACKPROP``, ``ENUM_NEXT``,
 ``MINIMAX_STEP``, ``ISSUE``, ``PO_STATE``, ``OBS_PO``, ``REROOT``,
-``BELIEVE``) take CUDA tensors only: they
+``BELIEVE``, ``ENV_HEALTH``) take CUDA tensors only: they
 check device, dtype, shape and contiguity, allocate the outputs, launch on
 PyTorch's current stream, raise if the launch reports a CUDA error, and
 count their launches in ``.launches``.  The callers in ``engine``,
@@ -121,7 +121,8 @@ class _Cfg(ctypes.Structure):
             "move_time", "attack_time", "harvest_time", "harvest_amount",
             "is_resource", "is_stockpile", "can_harvest", "can_move",
             "can_attack", "produces", "sight_radius")] + [
-        ("move_conflict_policy", ctypes.c_int)]
+        ("move_conflict_policy", ctypes.c_int),
+        ("max_damage", ctypes.c_int * MAXT)]
 
 
 class _StateP(ctypes.Structure):
@@ -266,10 +267,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                              ctypes.POINTER(ctypes.c_float), _P, _P, _P]),
         "decode": dict(decode=[cfg, st, _I, _I, _P, _P, _I, _I, cd, st, _P]),
         "issue_env": dict(issue_env=[cfg, st, _I, cd, st, _P]),
-        "cycle": dict(cycle=[cfg, st, _I, st, _P, _P, _P]),
+        "cycle": dict(cycle=[cfg, st, _I, st, _P, _P, _P, _P]),
         "epilogue": dict(epilogue=[cfg, ctypes.POINTER(_EpiCfg), _I, _P, _P,
                                    cd, cd, _P, _P, _P, _P, _I, _P, _P, _I,
-                                   _P, _P, _P]),
+                                   _P, _P, _P],
+                         env_health=[cfg, st, _I, _P, _I, _I, _P, _P]),
         "splice_obs": dict(splice_obs=[cfg, st, _I, _P, st, _I, st, _P, _P,
                                        _P, _P, _P]),
         "policy_sample": dict(policy_sample=[space, _I, _I, _P, _P, _P, _P,
@@ -339,6 +341,7 @@ def _cfg(cfg: EngineConfig) -> _Cfg:
         c.produces[:T] = [sum(1 << j for j, v in enumerate(row) if v)
                           for row in cfg.produces]
         c.sight_radius[:T] = [int(v) for v in cfg.sight_radius]
+        c.max_damage[:T] = [int(v) for v in cfg.max_damage]
         c.move_conflict_policy = int(cfg.move_conflict_policy)
         _CFGS[cfg] = c
     return _CFGS[cfg]
@@ -536,31 +539,43 @@ class _Issue(Kernel):
 
 class _Cycle(Kernel):
     def __call__(self, cfg: EngineConfig, state: State,
-                 active: Optional[torch.Tensor] = None
+                 active: Optional[torch.Tensor] = None,
+                 u01: Optional[torch.Tensor] = None
                  ) -> Tuple[State, torch.Tensor]:
         """One tick.  Returns (new State, gameover bool [B]); terrain,
         order_ctr and cancel_ctr are the input's tensors.  With ``active``
         (bool ``[B]``), the envs whose flag is off are copied unchanged
-        and their gameover reads False."""
-        if not cfg.det_damage:
-            raise NotImplementedError("cycle kernel: UTT v3 random damage")
+        and their gameover reads False.  ``u01`` (float32 ``[B, H, W]``)
+        draws UTT v3's damage: required under random damage, refused
+        under deterministic damage."""
         sp, B = _state_p(state, cfg)
         dev = state.utype.device
-        act = None
+        act = up = None
         if active is not None:
             act = _check("active", active, torch.bool, (B,), dev)
+        if cfg.det_damage:
+            if u01 is not None:
+                raise ValueError("cycle: u01 given, but the UTT's damage is "
+                                 "deterministic")
+        elif u01 is None:
+            raise ValueError("cycle: random damage (UTT v3) needs u01")
+        else:
+            up = _check("u01", u01, torch.float32,
+                        (B, cfg.height, cfg.width), dev)
         out = _fresh(state, _CYCLE_OUT)
         op, _ = _state_p(out, cfg)
         done = torch.empty(B, dtype=torch.bool, device=dev)
         with torch.cuda.device(dev):
             self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
-                         ctypes.byref(op), done.data_ptr(), act, _stream(dev))
+                         ctypes.byref(op), done.data_ptr(), act, up,
+                         _stream(dev))
         return out, done
 
 
 # reward function name -> the epilogue kernel's code (csrc/epilogue.cu)
 REWARD_CODES = {"winloss": 0, "resourcegather": 1, "produceworker": 2,
-                "producebuilding": 3, "producecombat": 4, "attack": 5}
+                "producebuilding": 3, "producecombat": 4, "attack": 5,
+                "closertoenemybase": 6, "closertoenemyunit": 7}
 _EPI: Dict[object, _EpiCfg] = {}
 
 
@@ -571,7 +586,7 @@ def _epi_cfg(env_cfg) -> _EpiCfg:
             raise ValueError(f"epilogue takes at most {MAXNR} rewards")
         for n in fns:
             if n not in REWARD_CODES:
-                raise NotImplementedError(f"epilogue: reward {n!r}")
+                raise ValueError(f"epilogue: unknown reward {n!r}")
         e = _EpiCfg(nr=len(fns), **{f: int(getattr(env_cfg, f)) for f in (
             "worker_id", "base_id", "barracks_id", "light_id", "heavy_id",
             "ranged_id")})
@@ -626,6 +641,29 @@ class _Epilogue(Kernel):
                          dones.data_ptr(), int(done_copies), ptr(reset),
                          ptr(nsteps), _stream(dev))
         return rew, dones, reset, nsteps
+
+
+class _EnvHealth(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State,
+                 rewards: torch.Tensor) -> torch.Tensor:
+        """The per-env failure flags bool ``[B]`` of ``state`` and its
+        rewards float32 ``[B, NR']`` (any ``NR'``, e.g. both players'
+        flattened): an occupied cell's hp outside [1, max hp], a type
+        past the UTT, a busy cell's negative ticks, a stockpile below 0
+        or above 10^6, a non-finite reward."""
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        if rewards.dim() != 2:
+            raise ValueError(f"env_health: rewards must be [B, NR'], got "
+                             f"{tuple(rewards.shape)}")
+        nrr = rewards.shape[1]
+        _check("rewards", rewards, torch.float32, (B, nrr), dev)
+        failed = torch.empty(B, dtype=torch.bool, device=dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B,
+                         rewards.data_ptr(), nrr, max(cfg.hp),
+                         failed.data_ptr(), _stream(dev))
+        return failed
 
 
 class _SpliceObs(Kernel):
@@ -1329,6 +1367,8 @@ ISSUE_ENV = _IssueEnv("issue_env", "microrts_tpu/engine/kernel.py:456")
 CYCLE = _Cycle("cycle", "microrts_tpu/engine/kernel.py:508")
 # + gridnet.py:467/501, vec.py:73
 EPILOGUE = _Epilogue("epilogue", "microrts_tpu/env/gridnet.py:491")
+ENV_HEALTH = _EnvHealth("env_health", "microrts_tpu/env/vec.py:23",
+                        "epilogue")
 # + gridnet.py:446, vec.py:92
 SPLICE_OBS = _SpliceObs("splice_obs", "microrts_tpu/env/gridnet.py:424")
 # + gridnet_policy.py:103
@@ -1379,7 +1419,8 @@ BELIEVE = _Believe("believe_update", "microrts_tpu/bots/believestate.py:215",
 KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE,
            LOGPROB, LOGPROB_BWD, RUSH, EVENT_JUMP, EVALUATE, ARM_SAMPLE,
            ARMS_TO_ACTION, MCTS_DESCEND, MCTS_BACKPROP, ENUM_NEXT,
-           MINIMAX_STEP, ISSUE, PO_STATE, OBS_PO, REROOT, BELIEVE)
+           MINIMAX_STEP, ISSUE, PO_STATE, OBS_PO, REROOT, BELIEVE,
+           ENV_HEALTH)
 
 
 def reset_counts() -> None:

@@ -31,6 +31,7 @@ struct Cfg {
   int produces[MAXT];  // bit j of produces[i]: type i can produce type j
   int sight_radius[MAXT];
   int move_conflict_policy;  // 1 CANCEL_BOTH, 2 RANDOM, 3 ALTERNATING
+  int max_damage[MAXT];      // above min_damage only in UTT v3
 };
 
 // One batch of states.  Board/assignment planes are [B, H, W];

@@ -2,11 +2,16 @@
 //
 // Replaces the JAX package's make_engine.cycle
 // (microrts_tpu/engine/kernel.py:508) and gameover (:726) on the new
-// state, for deterministic damage (UTT v1/v2).
+// state, with UTT v3's random damage (:505, :536-545): an attacker of
+// type t deals min_damage[t] + (int)(u01 * (max_damage[t] - min_damage[t]
+// + 1)) where max > min, u01 its cell's uniform (float32 [B, H, W], null
+// under deterministic damage); one round-to-nearest float32 product,
+// truncated toward zero, as XLA computes it.
 //
 // Bound at B=1024, 16x16: it reads the 14 planes other than terrain
 // (29 B/cell) and writes them anew (29 B/cell): about 58 B/cell plus the
-// per-env scalars, 15.2 MB, 4.5 us at 3.35 TB/s.  Bound by bytes.
+// per-env scalars, 15.2 MB, 4.5 us at 3.35 TB/s; with u01, 4 B/cell
+// more (62 B/cell, 16.3 MB, 4.9 us).  Bound by bytes.
 //
 // Design: one block per env, every plane it reads at a neighbour staged
 // in shared memory, four phases separated by __syncthreads():
@@ -29,8 +34,16 @@
 // lanes, microrts_tpu/ops/playout.py:104 and :172).
 #include "common.cuh"
 
+// The damage of an attacker of type index t at cell i (u01 may be null).
+__device__ __forceinline__ int damage_of(const Cfg& cfg, int t,
+                                         const float* u01, size_t i) {
+  const int lo = cfg.min_damage[t], hi = cfg.max_damage[t];
+  if (u01 == nullptr || hi <= lo) return lo;
+  return lo + (int)__fmul_rn(u01[i], (float)(hi - lo + 1));
+}
+
 __global__ void cycle_kernel(Cfg cfg, StateP s, StateP o, uint8_t* done,
-                             const uint8_t* active) {
+                             const uint8_t* active, const float* u01) {
   const int H = cfg.H, W = cfg.W, T = cfg.T, R = cfg.R;
   const int HW = H * W;
   const int b = blockIdx.x;
@@ -142,7 +155,8 @@ __global__ void cycle_kernel(Cfg cfg, StateP s, StateP o, uint8_t* done,
         const int src = sy * W + sx;
         if (s_comp[src] != A_ATTACK || s_atx[src] != x || s_aty[src] != y)
           continue;
-        const int sd = cfg.min_damage[tidx(cfg, s_utype[src])];
+        const int sd = damage_of(cfg, tidx(cfg, s_utype[src]), u01,
+                                 base + src);
         const int so = s_aorder[src];
         total += sd;
         if (so < dep_order) pre_dep += sd;
@@ -315,13 +329,14 @@ __global__ void cycle_kernel(Cfg cfg, StateP s, StateP o, uint8_t* done,
 
 extern "C" int cycle_launch(const Cfg* cfg, const StateP* s, int batch,
                             const StateP* out, uint8_t* done,
-                            const uint8_t* active, void* stream) {
+                            const uint8_t* active, const float* u01,
+                            void* stream) {
   const size_t HW = (size_t)cfg->H * cfg->W;
   size_t smem = 7 * carve_bytes(4 * HW) + 5 * carve_bytes(2 * HW)
                 + 6 * carve_bytes(HW) + 16;
   cudaError_t e = allow_smem(cycle_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   cycle_kernel<<<batch, block_threads((int)HW), smem, (cudaStream_t)stream>>>(
-      *cfg, *s, *out, done, active);
+      *cfg, *s, *out, done, active, u01);
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,9 @@ version.
 Randomness: JAX keys update ``u``'s rollout with ``fold_in(key, u)`` and
 then per env (``fold_in`` of the global env index) and per step; the port
 draws the same kinds of noise from a ``torch.Generator`` (the policy's
-gumbels, the opponent's uniforms), by default one seeded from the
+gumbels, the opponent's uniforms, and where the env needs them the
+engine's: UTT v3's damage uniforms, CANCEL_RANDOM's coins under fog),
+by default one seeded from the
 trainer's seed and the update count, or takes them from ``noise(t)``, so
 that a test can hand both packages the same draws.  ``update_sharded``
 (data parallel over cards) is not ported yet.
@@ -88,9 +90,14 @@ class StepNoise(NamedTuple):
     """One rollout step's randomness: player 0's gumbels float32 ``[N, H,
     W, A]`` and the opponent's draws (what its ``draw`` makes: uniforms
     ``[N, H, W, 2]`` for a random bot, None for a deterministic one;
-    gumbels for self-play; None for no opponent)."""
+    gumbels for self-play; None for no opponent), and the env step's
+    draws where the env needs them (``GridnetEnv.advance``): damage
+    uniforms float32 ``[step_cycles, N, H, W]`` and coins bool ``[2, N,
+    H, W, 4]``, else None."""
     gumbel: torch.Tensor
     opp: Optional[torch.Tensor]
+    u01: Optional[torch.Tensor] = None
+    coins: Optional[torch.Tensor] = None
 
 
 class PPOTrainer:
@@ -177,7 +184,9 @@ class PPOTrainer:
             opp = self.opponent.draw(gen, B)
         else:
             opp = None
-        return StepNoise(g, opp)
+        return StepNoise(g, opp, self.env.draw_u01(gen, self.env.step_cycles,
+                                                   B),
+                         self.env.draw_coins(gen, B))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -203,7 +212,8 @@ class PPOTrainer:
             else:
                 a1 = self._opp_action(states, nz.opp)
             states, steps, _, rewards, _, reset, oh = self.vec.step(
-                states, steps, action, a1, onehot=(0,))
+                states, steps, action, a1, onehot=(0,), coins=nz.coins,
+                u01=nz.u01)
             r = (rewards[:, 0, :] * self.reward_w).sum(-1)
             trs.append(Transition(obs=obs, mask=mask[..., 1:] != 0,
                                   action=action,

@@ -112,13 +112,18 @@ def test_state_numpy_roundtrip():
 
 
 def test_cycle_random_damage_raises():
+    """UTT v3's random damage needs the cycle's uniforms: without them
+    ``cycle`` raises, with them it runs (tests/test_torch_nondet.py holds
+    it against the JAX package)."""
     utt = UnitTypeTable(3)
     eng = make_engine(TT.EngineConfig.from_utt(utt, 8, 8))
     pgs = PhysicalGameState.load(asset_path("maps/8x8/basesWorkers8x8.xml"),
                                  utt)
     s = TT.state_from_pgs(pgs, eng.cfg, 1, "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs u01"):
         eng.cycle(s)
+    s2, done = eng.cycle(s, u01=torch.rand(1, 8, 8))
+    assert int(s2.time[0]) == 1 and not bool(done[0])
 
 
 def test_missing_card_raises(monkeypatch):

@@ -254,9 +254,17 @@ def test_frame_skip():
 
 
 def test_not_ported_options_raise():
+    """The closer rewards construct (every JAX reward is ported); a name
+    the JAX package does not know is refused."""
     path = asset_path(MAPS[0])
-    with pytest.raises(NotImplementedError):
-        GridnetEnv(path, reward_fns=("winloss", "closertoenemybase"),
+    env = GridnetEnv(path, reward_fns=("winloss", "closertoenemybase",
+                                       "closertoenemyunit"), device="cpu")
+    s = env.reset(2)
+    z = torch.zeros((2, env.h, env.w, 7), dtype=torch.int32)
+    _, r, _ = env.step(s, z, z)
+    assert r.shape == (2, 2, 3) and r.dtype == torch.float32
+    with pytest.raises(ValueError, match="unknown reward"):
+        GridnetEnv(path, reward_fns=("winloss", "closertoenemy"),
                    device="cpu")
 
 

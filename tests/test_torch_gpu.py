@@ -83,7 +83,7 @@ def test_kernel_path_equals_plain_on_card(map_rel):
         policy_logprob_fwd=0, policy_logprob_bwd=0, rush=0, event_jump=0,
         evaluate=0, arm_sample=0, arms_to_action=0, mcts_descend=0,
         mcts_backprop=0, enum_next=0, minimax_step=0, issue=0, po_state=0,
-        obs_po=0, mcts_reroot=0, believe_update=0)
+        obs_po=0, mcts_reroot=0, believe_update=0, env_health=0)
 
 
 def _states(env, B, ticks, seed):
@@ -408,7 +408,8 @@ def test_update_kernel_path_matches_plain_on_card():
             search = ("event_jump", "evaluate", "arm_sample",
                       "arms_to_action", "mcts_descend", "mcts_backprop",
                       "enum_next", "minimax_step", "issue", "po_state",
-                      "obs_po", "mcts_reroot", "believe_update")
+                      "obs_po", "mcts_reroot", "believe_update",
+                      "env_health")
             assert all(v > 0 for n, v in counts.items()
                        if n not in search), counts
             assert not any(counts[n] for n in search), counts
@@ -1262,3 +1263,129 @@ def test_stateful_kernels_reject_bad_input_on_card():
                   s, to_move, term, 2)
     KN.REROOT(cfg, tree, s, to_move, term, 2)
     assert int(tree.nnodes.sum()) == 4
+
+
+# ----------------------------------------------------------------------
+# slice 9: UTT v3's damage draw in cycle, the closer rewards in the
+# epilogue, env_health and the quarantined vec step
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_v3_quarantined_step_equals_plain_on_card(map_rel):
+    """The vec step under UTT v3 with all eight rewards and quarantine,
+    kernel path against plain path with the same draws (damage uniforms
+    from one generator): states, observations, rewards and reset mask
+    equal every tick; lanes with planted faults quarantined on both;
+    ``cycle`` with ``u01`` and ``env_health`` launched once a tick."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.engine.utt import UnitTypeTable
+    from microrts_tpu_torch.env.gridnet import REWARD_NAMES
+    dev = torch.device("cuda")
+    B, ticks = 64, 60
+    envs = [GridnetEnv(asset_path(map_rel), UnitTypeTable(3), device=dev,
+                       reward_fns=REWARD_NAMES, plain=p)
+            for p in (False, True)]
+    vecs = [VecGridnetEnv(e, B, 40, quarantine=True) for e in envs]
+    bots = [random_bot(e, BIAS) for e in envs]
+    st = [v.reset() for v in vecs]
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    KN.reset_counts()
+    quarantined = closer = 0
+    for t in range(ticks):
+        u0, u1 = (torch.rand((B, envs[0].h, envs[0].w, 2), generator=g,
+                             device=dev) for _ in (0, 1))
+        u01 = envs[0].draw_u01(g, 1, B)
+        if t % 10 == 5:   # a negative stockpile in lane t
+            for s, _ in st:
+                s.resources[t, 0] = -1
+        outs = [v.step(s, n, b(s, 0, u0), b(s, 1, u1), u01=u01)
+                for v, b, (s, n) in zip(vecs, bots, st)]
+        (ko, po) = outs
+        assert ko[0].equal(po[0]) == (True, ""), (t, ko[0].equal(po[0]))
+        for a, b in zip(ko[1:], po[1:]):
+            assert torch.equal(a, b), t
+        if t % 10 == 5:
+            assert bool(ko[5][t]) and int(ko[1][t]) == 0, t
+            quarantined += 1
+        closer += int((ko[3][..., 6:] != 0).sum())
+        st = [o[:2] for o in outs]
+    torch.cuda.synchronize()
+    c = KN.counts()
+    assert c["cycle"] == ticks and c["env_health"] == ticks, c
+    assert c["epilogue"] == ticks, c
+    assert quarantined == ticks // 10 and closer > 0
+
+
+@pytest.mark.gpu
+def test_v3_cycle_active_and_env_health_equal_plain_on_card():
+    """``cycle`` with ``u01`` and ``active`` lanes, and ``env_health`` on
+    planted faults, each against its plain version."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.engine.utt import UnitTypeTable
+    from microrts_tpu_torch.env.vec import env_health_plain
+    dev = torch.device("cuda")
+    env = GridnetEnv(asset_path(MAPS[0]), UnitTypeTable(3), device=dev,
+                     plain=True)
+    B = 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    bot = random_bot(env, BIAS)
+    s = env.reset(B)
+    above = 0
+    for t in range(120):
+        u0, u1 = (torch.rand((B, env.h, env.w, 2), generator=g, device=dev)
+                  for _ in (0, 1))
+        c0 = env.decode(s, bot(s, 0, u0), 0)
+        s1 = env.engine.issue_env(s, c0)
+        s2 = env.engine.issue_env(s1, env.decode(s1, bot(s1, 1, u1), 1))
+        u01 = torch.rand((B, env.h, env.w), generator=g, device=dev)
+        active = torch.rand(B, generator=g, device=dev) < 0.7
+        for act in (active, None):
+            kn, kd = KN.CYCLE(env.cfg.engine, s2, act, u01)
+            pn, pd = env.engine.cycle_plain(s2, act, u01)
+            assert kn.equal(pn) == (True, "") and torch.equal(kd, pd), t
+        above += int(((s2.hp - kn.hp) > 2).sum())
+        s = pn   # every lane cycled: no post-issue NONE(-1) left busy
+    assert above > 0
+    rew = torch.zeros((B, 16), device=dev)
+    bad = s.clone()
+    bad.hp[1] = torch.where(bad.utype[1] > 0, 0, bad.hp[1])
+    bad.utype[2, 0, 0] = env.cfg.engine.num_types + 1
+    bad.busy[3, 0, 0], bad.aticks[3, 0, 0] = True, -1
+    bad.resources[4, 1] = -5
+    rew[5, 7] = float("nan")
+    rew[6, 0] = float("-inf")
+    k = KN.ENV_HEALTH(env.cfg.engine, bad, rew)
+    assert torch.equal(k, env_health_plain(bad, rew, env.cfg.engine))
+    assert k[1:7].all() and not k[7:].any()
+
+
+@pytest.mark.gpu
+def test_slice9_kernels_reject_bad_input_on_card():
+    """v3 without ``u01``, ``u01`` under v2, a wrong-shaped ``u01`` and a
+    wrong-shaped reward table are refused on the card."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.engine.utt import UnitTypeTable
+    dev = torch.device("cuda")
+    e3 = GridnetEnv(asset_path(MAPS[0]), UnitTypeTable(3), device=dev)
+    e2 = GridnetEnv(asset_path(MAPS[0]), device=dev)
+    s3, s2 = e3.reset(4), e2.reset(4)
+    with pytest.raises(ValueError, match="needs u01"):
+        KN.CYCLE(e3.cfg.engine, s3)
+    with pytest.raises(ValueError, match="needs u01"):
+        e3.engine.cycle(s3)
+    u = torch.rand((4, e3.h, e3.w), device=dev)
+    with pytest.raises(ValueError, match="deterministic"):
+        KN.CYCLE(e2.cfg.engine, s2, None, u)
+    with pytest.raises(ValueError, match="shape"):
+        KN.CYCLE(e3.cfg.engine, s3, None, u[:, :-1])
+    with pytest.raises(TypeError):
+        KN.CYCLE(e3.cfg.engine, s3, None, u.double())
+    with pytest.raises(ValueError):
+        KN.ENV_HEALTH(e2.cfg.engine, s2, torch.zeros(4, device=dev))
+    with pytest.raises(ValueError):
+        KN.ENV_HEALTH(e2.cfg.engine, s2, torch.zeros((4, 2)))

@@ -59,8 +59,8 @@ def test_run_refuses_what_is_not_ported():
                  "BS3_NaiveMCTS"):
         with pytest.raises(ValueError, match="stateful"):
             run.main(ARGS + ["--opponent", name])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        run.main(ARGS + ["--opponent", "RandomBiasedSingleUnitAI"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        run.main(ARGS + ["--opponent", "UnitActionProbabilityDistributionAI"])
 
 
 def test_run_without_cpu_flag_needs_a_card():

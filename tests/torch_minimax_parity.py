@@ -309,8 +309,8 @@ def check_dfs(jmake, make, kw, player, deepening=None):
     bot = make(env, **kw)
     if deepening:   # the bot's own searches, each one's result recorded
         outs, runs = [], list(bot.bot.runs)
-        bot.bot.runs[:] = [lambda st, p, r=r: outs.append(r(st, p))
-                           or outs[-1] for r in runs]
+        bot.bot.runs[:] = [lambda st, p, r=r, **kw: outs.append(
+            r(st, p, **kw)) or outs[-1] for r in runs]
         act = bot(s, player)
     else:
         outs = [bot.bot.run(s, player)]
