@@ -7,22 +7,24 @@ Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
 envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the twenty-four CUDA kernels (eighteen sources) from
+2. build: compiles the thirty-two CUDA kernels (twenty-one sources) from
    ``microrts_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel; ``-Xptxas -v`` report printed);
-3. realistic states: runs the plain PyTorch path (RandomBiasedAI, bias 5,
-   both players) on the card until the recorded kernel inputs hold busy
-   units, kept produces and completing attacks (at least 20), harvests
-   and returns; one more record has terminal envs (a player's units
-   removed) for the winloss reward; then a plain WorkerRush-vs-LightRush
-   run (each env opens with a few random ticks, so that the envs differ)
-   records rush states, plus a copy with the bases removed (rebuilds);
-   then the plain partially observable (PO) path (RandomBiasedAI, both
-   players, fog-of-war decode and the full ``issue``) for 128 ticks from
-   the end of the rush run (units in contact), counting at every issue the conflicts of each kind
-   (cross-cycle position and resource cancels, chain cancels of a new
-   and of an earlier same-tick claim) and keeping the step's inputs every
-   16th tick and where a kind first occurs;
+3. realistic states: runs RandomBiasedAI (bias 5, both players) on the
+   card until the recorded kernel inputs hold busy units, kept produces
+   and completing attacks (at least 20), harvests and returns, each tick
+   on the kernels and each recorded tick again on the plain PyTorch path,
+   whose outputs are kept; one more record has terminal envs (a player's
+   units removed) for the winloss reward; then a WorkerRush-vs-LightRush
+   run on the kernels (each env opens with a few random ticks, so that
+   the envs differ) records rush states, plus a copy with the bases
+   removed (rebuilds); then the partially observable (PO) path
+   (RandomBiasedAI, both players, fog-of-war decode and the full
+   ``issue``) for 128 ticks from the end of the rush run (units in
+   contact), every 16th tick on the plain path, which counts at its
+   issues the conflicts of each kind (cross-cycle position and resource
+   cancels, chain cancels of a new and of an earlier same-tick claim),
+   keeping that step's inputs and outputs;
 4. kernel vs plain: every kernel output equals its plain version on those
    inputs (tolerance: exact; the policy sampler's and K7b's logprob and
    entropy within 1e-5 relative + 1e-4 absolute, K7b's gradient of the
@@ -41,15 +43,15 @@ envs:
    decode with a per-env player vector; ``arm_sample`` (K12b) in its four
    modes on random visit tables and ``arms_to_action``; ``mcts_descend``
    (K12c) and ``mcts_backprop`` (K12d) on every 5th node-array update of
-   plain NaiveMCTS and UCT searches of 16 rush records (6-node trees, so
+   NaiveMCTS and UCT searches of 16 rush records (6-node trees, so
    that they fill; exact); ``enum_next`` (K12e), eight successive draws
    of both players' odometers from ``init`` (four with every lane
-   drawing, four with every other lane) on every 3rd recorded tick, every
+   drawing, four with every other lane) on every 6th recorded tick, every
    4th rush record, a record where no unit can act and a resource-tight
    one (balance at most 2), arms, valid flags, trip counts and the
    odometers in place exact, the largest trip count printed;
    ``minimax_step`` (K12f) on every 5th trip, and every trip that pops a
-   root child, of plain ABCD and RTMinimax searches of 16 rush records
+   root child, of ABCD and RTMinimax searches of 16 rush records
    for both players at small budgets (budget 64 and the reduced shapes
    of [12]), and on the same trips
    with their pushes turned into exhausted draws (a search never draws
@@ -80,11 +82,22 @@ envs:
    ``env_health`` on every record's post-step state with a fault planted
    in lanes 1-6 of every 8 (hp 0, a type past the UTT, negative ticks on
    a busy cell, a negative stockpile, a NaN reward, a stockpile above
-   10^6) and healthy lanes, exact; each kernel and its plain version are
-   timed with CUDA events (``mcts_reroot`` in [14]; ``cycle`` under v3
+   10^6) and healthy lanes, exact; slice 10: ``distance_fields`` (the
+   enemy, resource and own-base fields of both players), each field's
+   ``descend_direction``, ``distance_field2`` of the own units and
+   ``descend_direction_excluding`` of the cells' own ids, ``range_cover``
+   and ``dsl_target`` under the seven target policies (Random's uniforms
+   drawn) on every 2nd rush record, every 4th PO record and a planted
+   serpentine maze whose far end lies beyond H+W sweeps;
+   ``expert_macro`` for every macro 0-12 and both players on every 3rd
+   rush record with role tables carried along the records by a plain run,
+   and
+   ``expert_detailed`` on seeded logits, exact; each kernel and its plain
+   version are timed with CUDA events (200 calls of the kernel, 4 of the
+   plain version; ``mcts_reroot`` in [14]; ``cycle`` under v3
    and the eight-reward ``epilogue`` beside their v2 figures);
 5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
-   kernels next to the plain path, same start and uniforms, 64 ticks
+   kernels next to the plain path, same start and uniforms, 32 ticks
    with auto-resets; state, obs, rewards and dones equal at every tick;
    launches per step actor 2, decode 2, issue_env 2, cycle 1, epilogue 1,
    splice_obs 1, no other; then a steady window gives env-steps/s;
@@ -118,15 +131,15 @@ envs:
 8. the round robin: PassiveAI, RandomBiasedAI and the four rushes, 30
    ordered pairs x 34 games = 1020 lanes of one pool batch
    (``eval/tournament.round_robin``), through the kernels next to the
-   plain path with the same seed to 40 cycles (tables, winners and
+   plain path with the same seed to 12 cycles (tables, winners and
    final states equal; ``event_jump``, ``cycle``, the actor's, the
    step's and the rush kernels launched, ``evaluate`` not), and 64
-   RandomBiasedAI vs WorkerRush games (``play_matches``) next to the
-   plain path to 400 cycles, in which games end (winners and frozen
-   final states equal), then ``round_robin`` timed on the kernels to
-   the default 2000 cycles: game-ticks/s (the lanes' ticks over the wall
+   RandomBiasedAI vs WorkerRush games (``play_matches``) on basesWorkers8x8
+   next to the plain path to 240 cycles, in which games end (winners and
+   frozen final states equal), then ``round_robin`` timed on the kernels
+   to 1000 cycles: game-ticks/s (the lanes' ticks over the wall
    seconds), frames, the table, and the device busy share of a profiled
-   64-cycle run;
+   32-cycle run;
 9. MonteCarlo (K=12, playout_len 48): one decision of 64 recorded rush
    games (768 playout lanes) and 8-cycle games against WorkerRush
    (``play_matches``), through the kernels next to the plain path with
@@ -138,14 +151,14 @@ envs:
    (win-rate, winners and final states equal), then 1024 games to 2000
    cycles, timed, with its win-rate;
 11. tree search: one NaiveMCTS and one UCT decision of 16 rush records
-   at a reduced budget (8 playouts, 16 nodes, 8 children or candidates,
+   at a reduced budget (4 playouts, 16 nodes, 8 children or candidates,
    depth 4, playout_len 24) and 16 NaiveMCTS (2 playouts, depth 2,
    playout_len 4) vs WorkerRush games to 4 cycles (``play_matches``),
    through the kernels next to the plain path with the same draws (whole
    trees, actions, winners and final states equal); on 64 recorded rush
    games at a decision frame of player 0, one decision of each at the
-   defaults' nodes, children and depth with short playouts (6 and 5
-   playouts of 4 ticks), kernel next to plain (whole trees and actions
+   defaults' nodes, children and depth with short playouts (3 playouts
+   of 4 ticks), kernel next to plain (whole trees and actions
    equal), then one decision of each (``make_bot``: the JAX defaults),
    timed:
    game-decisions/s, tree iterations/s, launches by kernel, peak memory;
@@ -160,7 +173,7 @@ envs:
    ABCD, RTMinimax, IDRTMinimaxRandomized and SampledABCD on the 64 timed
    games at the defaults' stack and candidate shapes (ABCD depth 4,
    RTMinimax stack 12, the randomized bot's 8 x 8 DFS lanes a game at
-   stack 10, 8 x 8 SampledABCD candidates) with budgets of 32 trips and
+   stack 10, 8 x 8 SampledABCD candidates) with budgets of 16 trips and
    8-tick playouts, kernel vs plain (whole stacks, values and actions
    equal; the deepest stack row used printed), then one decision of the
    64 games at the JAX defaults (``make_bot``) of each of the four, timed:
@@ -168,17 +181,17 @@ envs:
    device's busy share of a profiled decision (ABCD's at a budget of 64);
 13. the PO main path: ``VecGridnetEnv(GridnetEnv(partial_obs=True))`` +
    ``random_bot`` through the kernels next to the plain path, same start
-   (the end of [3]'s PO run) and uniforms, 64 ticks with auto-resets;
+   (the end of [3]'s PO run) and uniforms, 32 ticks with auto-resets;
    state, 8-plane observations, the one-hot of each player's view,
    rewards and dones equal at every tick; launches per step actor 2,
    po_state 2, decode 2, issue 2, cycle 1, epilogue 1, splice_obs 1,
    obs_po 1, no other; a steady window gives PO env-steps/s and a
    profiled one the card's busy share; ``MapPoolVecEnv(partial_obs=True)``
    over basesWorkers16x16, TwoBasesBarracks16x16 and the padded
-   basesWorkers8x8 and NoWhereToRun9x8, 64 ticks kernel vs plain (resets
+   basesWorkers8x8 and NoWhereToRun9x8, 32 ticks kernel vs plain (resets
    to each env's own map); a ``round_robin`` of the four PO rushes and
    WorkerRush on the PO env (20 ordered pairs x 8 games) kernel vs plain
-   to 16 cycles (winners, tables, states equal), then timed to 2000
+   to 8 cycles (winners, tables, states equal), then timed to 2000
    cycles: game-ticks/s;
 14. the stateful bots: 1024 WorkerRush-vs-LightRush games on the PO
    env (2 (k % 32) random opening ticks in env k) played 240 ticks
@@ -186,12 +199,12 @@ envs:
    observers, the seen types cleared in half the lanes, kernel vs plain
    for 150 ticks (whole memories and sampled worlds exact; every rule of
    each level fired for one observer or the other, the cells counted);
-   on the 64 timed games of [11], three
-   warm BS3_NaiveMCTS decisions at the JAX defaults (``make_bot``), each
+   on the 64 timed games of [11], a
+   warm BS3_NaiveMCTS decision at the JAX defaults (``make_bot``),
    followed by a NaiveMCTS decision on the same games and noise, timed
-   (medians and each pair's ratio), with BS3's launches, peak memory and
+   (and their ratio), with BS3's launches, peak memory and
    a profiled decision's busy share; ContinuingNaiveMCTS at the JAX
-   defaults against WorkerRush for 4 consecutive decisions (the first on
+   defaults against WorkerRush for 2 consecutive decisions (the first on
    fresh trees), each timed with its launches, the re-root hit share and
    the nodes carried, the peak memory, then ``mcts_reroot`` of the last
    trees kernel vs plain (whole trees, row N included; some game keeps
@@ -199,7 +212,7 @@ envs:
    busy share; and
    ``play_matches_stateful`` of BS3 (the [11] games' budget) against
    POWorkerRush and of ContinuingNaiveMCTS against WorkerRush, 16 games
-   to 4 cycles, kernel vs plain (winners and final states equal);
+   to 2 cycles, kernel vs plain (winners and final states equal);
 15. slice 9 at full width: ``VecGridnetEnv(quarantine=True)`` over
    ``GridnetEnv(UnitTypeTable(3), reward_fns=REWARD_NAMES)``, WorkerRush
    vs LightRush from the end of [3]'s rush run (units in contact), the
@@ -215,16 +228,38 @@ envs:
    env (``PPOConfig(num_envs=1024)``, phase 7's rollout_len, WorkerRush),
    the last timed; a round robin of POWorkerRush, POLightRush and
    WorkerRush on the PO env under ``UnitTypeTable(2, CANCEL_RANDOM)``
-   (coins drawn each frame) kernel next to plain to 24 cycles (states,
+   (coins drawn each frame) kernel next to plain to 12 cycles (states,
    winners, tables equal); one MonteCarlo decision at the JAX defaults
    under v3 on [9]'s 64 games kernel next to plain (actions equal), then
    a warm one timed;
-16. one JSON line of every kernel (launches: phase 7's for the training
+16. slice 10 at full width: ``ExpertEnv.step_vs`` of 1024 envs from
+   the start, macros drawn from the action mask, against WorkerRush
+   kernel next to plain for 32 ticks (states, the four role tables,
+   rewards and dones equal; launches per step expert_macro 1, rush 1,
+   decode 2, issue_env 2, cycle 1, epilogue 1), then timed (env-steps/s,
+   busy share, peak memory); the detailed mode (player 0, seeded logits
+   per env, against WorkerRush) kernel next to plain for 12 ticks, then
+   timed, with the size of its Gumbel noise; the self-play macro step
+   kernel next to plain for 16 ticks, then timed;
+   ``evaluate_population`` of SEED_PROGRAM and 7 mutations of
+   ``random.Random(0)`` against WorkerRush and LightRush, 32 games a side
+   (1024 lanes), kernel next to plain for 8 ticks (states, winners,
+   fitness), then timed to 336 cycles (lane-ticks/s);
+   from the timed run's state (kept every 32 ticks) with the most lanes
+   in contact both ways, its programs and two programs that reach every
+   DSL kernel for 8 ticks each, kernel next to plain on 1024 lanes,
+   each window failing unless the programs issue ATTACKs and lanes are in
+   contact both ways; ``python -m microrts_tpu_torch.synth`` through
+   ``main`` on basesWorkers8x8 with small settings and ``--clean
+   behavior``, its program text printed;
+17. one JSON line of every kernel (launches: phase 7's for the training
    kernels, one MonteCarlo decision's for ``event_jump`` and
    ``evaluate``, one NaiveMCTS decision's at the defaults for K12b-d, one
    ABCD decision's at the defaults for K12e-f, the PO main path's for
    K11a-c, a ContinuingNaiveMCTS decision's for K12g, a BS3_NaiveMCTS
-   decision's for K13 and [15]'s v3 step for ``env_health``; ``cycle``'s
+   decision's for K13, [15]'s v3 step for ``env_health``, [16]'s
+   checked step_vs, detailed steps and populations for the slice-10
+   kernels; ``cycle``'s
    entry also holds its UTT v3 figures under ``utt_v3`` and the
    epilogue's its eight-reward ones under ``eight_rewards``; every
    phase's under
@@ -254,7 +289,7 @@ BIAS = 5.0
 MIN_TICKS = 300          # phase 3: at least this many plain ticks
 MAX_TICKS = 1500         # ... and at most this many while events are missing
 MIN_ATTACKS = 20         # completing attacks wanted in the recorded inputs
-MAIN_TICKS = 64          # phase 5: compared ticks
+MAIN_TICKS = 32          # phase 5: compared ticks
 MAX_STEPS = 96           # phase 5: episode cap, so that resets happen
 TIME_TICKS = 200         # phase 5: timed window
 ROLL_STEPS = 16          # phase 6: compared rollout steps
@@ -263,6 +298,7 @@ RUSH_TICKS = 480         # phase 3: plain WorkerRush-vs-LightRush ticks
 RUSH_EVERY = 40          # ... recorded every this many ticks
 RUSH_OPEN = 2            # env k opens with 2 (k % 32) random ticks
 LOGPROB_RECORDS = 4      # phase 4: K7b over 4 x 1024 envs (a minibatch)
+PLAIN_REPS = 4           # phase 4: timed calls of each plain version
 UPDATE_LEN = 16          # phase 7: compared updates' rollout_len
 TRAIN_LEN = 128          # phase 7: timed updates' rollout_len (default)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
@@ -270,6 +306,23 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 # H100 SXM int32: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (NVIDIA H100
 # Tensor Core GPU Architecture whitepaper), one operation per lane a clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The least int32 operations of the stencils' functions (what the function
+# needs, not what a kernel spends on bounds or indices).  A distance-field
+# sweep, per cell: the min of the four neighbours (3), the +1, the min
+# with the cell's own value, the source and the walkable selects.
+FIELD_OPS = 7
+# distance_field2's sweep merges 8 candidates a cell, each: the +1, three
+# compares (same first id, below the first, below the second) and six
+# selects or mins of the two (distance, id) entries.
+FIELD2_OPS = 8 * 10
+# range_cover, per cell and offset: the source's range squared against
+# the offset's d2, the AND with the source flag, the OR into the cover.
+COVER_OPS = 3
+# dsl_target (Weakest), per cell and offset: the offset's d2 against the
+# cell's range squared, the AND with the enemy flag, the score against
+# the best, the AND of the two, the two selects (the score plane is made
+# once a cell).
+TARGET_OPS = 6
 LP_TOL = dict(rtol=1e-5, atol=1e-4)  # sampler / K7b logprob, entropy
 DLOGITS_TOL = dict(rtol=1e-4, atol=1e-5)  # K7b gradient vs autograd
 SGD_TOL = dict(metrics_rtol=1e-3, params_atol=1e-5)
@@ -291,11 +344,13 @@ TRAIN_KERNELS = ROLLOUT_KERNELS + ("policy_logprob_fwd", "policy_logprob_bwd",
 RR_BOTS = ("PassiveAI", "RandomBiasedAI", "WorkerRush", "LightRush",
            "HeavyRush", "RangedRush")
 RR_GAMES = 34            # per ordered pair: 30 pairs x 34 = 1020 lanes
-RR_CHECK_CYCLES = 40     # phase 8: the kernel run next to the plain path
+RR_CHECK_CYCLES = 12     # phase 8: the kernel run next to the plain path
 WIN_CHECK_GAMES = 64     # phase 8: RandomBiasedAI vs WorkerRush next to the
-WIN_CHECK_CYCLES = 400   # ... plain path (WorkerRush wins from tick 360)
-RR_CYCLES = 2000         # phase 8: timed at the JAX package's default
-RR_PROFILE_CYCLES = 64   # phase 8: the profiled window
+WIN_CHECK_MAP = "maps/8x8/basesWorkers8x8.xml"  # ... plain path on 8x8,
+WIN_CHECK_CYCLES = 240   # ... where WorkerRush wins from about tick 195
+RR_CYCLES = 1000         # phase 8: timed (the JAX default, 2000, cut for
+                         # the time limit)
+RR_PROFILE_CYCLES = 32   # phase 8: the profiled window
 RR_KERNELS = ("actor", "decode", "issue_env", "cycle", "rush", "event_jump")
 MC_GAMES = 64            # phase 9: MonteCarlo (K=12, L=48) vs WorkerRush
 MC_CHECK_CYCLES = 8      # phase 9: the games next to the plain path
@@ -319,13 +374,14 @@ TREE_CHECK = dict(n_playouts=8, max_nodes=16, max_children=8, max_depth=4,
                   playout_len=24)
 UCT_CHECK = dict(n_playouts=8, max_nodes=16, n_candidates=8, max_depth=4,
                  playout_len=24)
+TREE_PLAYOUTS_11 = 4     # phase 11: TREE_CHECK's and UCT_CHECK's playouts
 TREE_GAME = dict(n_playouts=2, max_depth=2, playout_len=4)
 TREE_GAME_CYCLES = 4     # phase 11: NaiveMCTS vs WorkerRush, 16 games
 TREE_TIME_GAMES = 64     # phase 11: one decision at the JAX defaults
 # phase 11: kernel vs plain at the defaults' tree shapes (N, C, D) on the
 # 64 timed games, with short playouts so that the plain path stays cheap
-TREE_DEEP = {"NaiveMCTS": dict(n_playouts=6, playout_len=4),
-             "UCT": dict(n_playouts=5, playout_len=4)}
+TREE_DEEP = {"NaiveMCTS": dict(n_playouts=3, playout_len=4),
+             "UCT": dict(n_playouts=3, playout_len=4)}
 TREE_ITERS = 64          # ... whose n_playouts (treesearch.py:137, :620)
 TREE_SNAPSHOT_EVERY = 5  # phase 4: every 5th node-array update kept
 SNAP_NODES = 6           # ... of searches whose trees fill (nnodes == N)
@@ -336,10 +392,10 @@ TREE_KERNELS = ("actor", "decode", "issue_env", "cycle", "event_jump",
 MM_SNAPSHOT_EVERY = 5    # phase 4: every 5th minimax_step call kept ...
 MM_SNAPSHOT_BUDGET = 64  # ... of searches of both players at this budget
 MM_REDUCED = {           # phase 12 (and 4): kernel vs plain, 16 games
-    "ABCD": dict(max_depth=2, playout_len=8, node_budget=32),
-    "IDABCD": dict(depths=(1, 2), playout_len=8, node_budget=32),
-    "RTMinimax": dict(lookahead=12, stack_cap=6, node_budget=32),
-    "IDRTMinimax": dict(lookaheads=(6, 12), stack_cap=6, node_budget=32),
+    "ABCD": dict(max_depth=2, playout_len=8, node_budget=16),
+    "IDABCD": dict(depths=(1, 2), playout_len=8, node_budget=16),
+    "RTMinimax": dict(lookahead=12, stack_cap=6, node_budget=16),
+    "IDRTMinimax": dict(lookaheads=(6, 12), stack_cap=6, node_budget=16),
     "IDRTMinimaxRandomized": dict(k_moves=4, repeats=4, lookahead=12,
                                   stack_cap=6, node_budget=16),
     "SampledABCD": dict(k_moves=4, playout_len=8)}
@@ -348,10 +404,10 @@ MM_GAME_CYCLES = 4       # phase 12: ABCD (reduced) vs WorkerRush, 16 games
 # shapes (ABCD S=5, RTMinimax S=12, IDRTMinimaxRandomized 4096 lanes S=11,
 # SampledABCD 8 x 8 candidates), with short budgets and playouts so that
 # the plain path stays cheap
-MM_DEEP = {"ABCD": dict(max_depth=4, playout_len=8, node_budget=32),
-           "RTMinimax": dict(lookahead=50, stack_cap=12, node_budget=32),
+MM_DEEP = {"ABCD": dict(max_depth=4, playout_len=8, node_budget=16),
+           "RTMinimax": dict(lookahead=50, stack_cap=12, node_budget=16),
            "IDRTMinimaxRandomized": dict(k_moves=8, repeats=8, lookahead=25,
-                                         stack_cap=10, node_budget=32),
+                                         stack_cap=10, node_budget=16),
            "SampledABCD": dict(k_moves=8, playout_len=8)}
 # phase 12: the profiled decision (device busy share) is the timed one,
 # but ABCD's at this budget (its trips are alike; 512 would trace ~40,000
@@ -371,7 +427,7 @@ MM_KERNELS = {"ABCD": DFS_KERNELS + ("rush",),
 # the partially observable path (K11a-c)
 PO_TICKS = 128           # phase 3: plain PO ticks (1024 envs)
 PO_RECORD_EVERY = 16     # ... whose inputs are kept every 16th tick
-PO_MAIN_TICKS = 64       # phase 13: compared PO ticks
+PO_MAIN_TICKS = 32       # phase 13: compared PO ticks
 PO_TIME_TICKS = 200      # phase 13: timed window
 PO_PROFILE_TICKS = 20    # phase 13: profiled window
 # phase 13: launches per PO step (random_bot's actor for both players)
@@ -380,23 +436,23 @@ PO_STEP_LAUNCHES = dict(actor=2, po_state=2, decode=2, issue=2, cycle=1,
 POOL_MAPS = ("maps/16x16/basesWorkers16x16.xml",
              "maps/16x16/TwoBasesBarracks16x16.xml",
              "maps/8x8/basesWorkers8x8.xml", "maps/NoWhereToRun9x8.xml")
-POOL_TICKS = 64          # phase 13: the PO pool next to the plain path
+POOL_TICKS = 32          # phase 13: the PO pool next to the plain path
 PO_RR_BOTS = ("POWorkerRush", "POLightRush", "POHeavyRush", "PORangedRush",
               "WorkerRush")
 PO_RR_GAMES = 8          # per ordered pair: 20 pairs x 8 = 160 lanes
 # phase 13: kernel next to plain; the plain PO rushes' pool takes ~0.66 s
-# a frame on the card's host, so the check stops at 16 cycles
-PO_RR_CHECK_CYCLES = 16
-PO_RR_CYCLES = 2000      # phase 13: timed
+# a frame on the card's host, so the check stops at 8 cycles
+PO_RR_CHECK_CYCLES = 8
+PO_RR_CYCLES = 2000      # phase 13: timed (WorkerRush wins only late)
 PO_RR_KERNELS = ("decode", "issue", "po_state", "cycle", "rush",
                  "event_jump")
 # the stateful bots (K13, K12g)
 BEL_OPEN = 240           # phase 14: PO rush ticks before the memories
 BEL_TICKS = 150          # ... then memories kernel vs plain for 150 ticks
-BS3_PAIRS = 3            # phase 14: BS3_NaiveMCTS, NaiveMCTS decisions in turn
-CONT_FRAMES = 4          # phase 14: consecutive ContinuingNaiveMCTS frames
+BS3_PAIRS = 1            # phase 14: BS3_NaiveMCTS, NaiveMCTS decisions in turn
+CONT_FRAMES = 2          # phase 14: consecutive ContinuingNaiveMCTS frames
 REROOT_N = 4             # ... mcts_reroot timed on copies of 64 trees
-STATEFUL_GAME_CYCLES = 4  # phase 14: the stateful loop kernel vs plain
+STATEFUL_GAME_CYCLES = 2  # phase 14: the stateful loop kernel vs plain
 # slice 9: UTT v3's damage draw, the eight rewards, the quarantine
 FAULT_LANES = 8          # phase 4: lane b % 8 in 1..6 holds a planted fault
 V3_CHECK_TICKS = 48      # phase 15: the v3 quarantined step kernel vs plain
@@ -405,7 +461,24 @@ V3_TIME_TICKS = 200      # phase 15: timed window (phase 5's)
 V3_UPDATES = 2           # phase 15: PPO updates on the v3 env (1 timed)
 RANDOM_RR_BOTS = ("POWorkerRush", "POLightRush", "WorkerRush")
 RANDOM_RR_GAMES = 8      # phase 15: per ordered pair, 6 pairs x 8 lanes
-RANDOM_RR_CYCLES = 24    # ... CANCEL_RANDOM PO round robin kernel vs plain
+RANDOM_RR_CYCLES = 12    # ... CANCEL_RANDOM PO round robin kernel vs plain
+# slice 10: the expert macro env and the DSL synthesis at full width
+EXPERT_CHECK_TICKS = 32  # phase 16: step_vs vs WorkerRush kernel vs plain
+EXPERT_TIME_TICKS = 100  # ... then timed
+EXPERT_PROFILE_TICKS = 20  # ... and a profiled window
+DETAILED_CHECK_TICKS = 12  # phase 16: the detailed mode kernel vs plain
+DETAILED_TIME_TICKS = 40   # ... then timed
+SELFPLAY_CHECK_TICKS = 16  # phase 16: the self-play step kernel vs plain
+SELFPLAY_TIME_TICKS = 100  # ... then timed
+SYN_GAMES = 32           # phase 16: games a side: 8 x 2 x 2 x 32 = 1024
+SYN_CHECK_TICKS = 8      # ... evaluate_population kernel vs plain
+SYN_CYCLES = 336         # ... then timed (the JAX default max_cycles, 1200, is cut
+                         # for the time limit)
+SYN_SNAP_EVERY = 32      # ... keeping its state every 32 ticks
+SYN_CONTACT_TICKS = 8    # phase 16: its programs kernel vs plain from the
+COVER_CONTACT_TICKS = 8  # kept state most in contact, and the programs of
+                         # every DSL kernel
+SYN_OPPONENTS = ("WorkerRush", "LightRush")
 
 
 def plant_faults(post, rew, num_types):
@@ -567,7 +640,7 @@ def tree_pairs(kt, pt, kw=None, pw=None):
 
 
 def record_tree_calls(TS, run, every):
-    """Run ``run()`` (a plain search) with the node-array updates of
+    """Run ``run()`` (a search) with the node-array updates of
     ``bots.treesearch`` wrapped: copies of the tree, the walk and the other
     arguments of every ``every``-th call of each, before the call."""
     names = ("mcts_descend", "uct_select", "uct_descend", "mcts_backprop")
@@ -624,7 +697,7 @@ def clone_trip(trip):
 
 
 def record_minimax_calls(MM, run, every):
-    """Run ``run()`` (a plain search) with ``bots.minimax.minimax_step``
+    """Run ``run()`` (a search) with ``bots.minimax.minimax_step``
     wrapped: copies of the stack and the trip of every ``every``-th call
     and of every call that pops a root child (the rare root updates),
     before the call."""
@@ -760,6 +833,16 @@ def random_claims(gen, s, cfg, cells):
 
 
 def main() -> int:
+    t_main = time.perf_counter()
+    t_lap = [t_main]
+
+    def lap(part: str) -> None:
+        """Print the seconds since the last lap: where the script's time
+        goes, against its limit."""
+        now = time.perf_counter()
+        print(f"    ({part} took {now - t_lap[0]:.1f} s; the script "
+              f"{now - t_main:.1f} s so far)", flush=True)
+        t_lap[0] = now
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -796,6 +879,13 @@ def main() -> int:
     from microrts_tpu_torch.train.ppo import PPOConfig, PPOTrainer
     from microrts_tpu_torch.train.run import evaluate
     from microrts_tpu_torch.utils.assets import asset_path
+    from microrts_tpu_torch.engine.kernel import pull
+    from microrts_tpu_torch.env.expert import (
+        NUM_MACROS, DetailedNoise, ExpertEnv, ExpertNoise, ExpertRoles,
+        detailed_to_gridnet, detailed_to_gridnet_plain, scan_offsets)
+    from microrts_tpu_torch.ops import fields as FLD
+    from microrts_tpu_torch.synth import dsl as DSL
+    from microrts_tpu_torch.synth import search as SYN
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -834,8 +924,12 @@ def main() -> int:
         return (torch.rand((B, H, W, 2), generator=gen, device=dev),
                 torch.rand((B, H, W, 2), generator=gen, device=dev))
 
-    # ---- [3] realistic states from the plain path
+    lap("[1]-[2]")
+    # ---- [3] realistic states: RandomBiasedAI on the kernel path, each
+    # recorded tick run again on the plain path, whose outputs are [4]'s
+    # references
     t0 = time.perf_counter()
+    keng = kenv.engine
     s = penv.reset(B)
     records = []
     seen = dict(busy=0, produce_kept=0, attack=0, harvest=0, ret=0)
@@ -846,12 +940,12 @@ def main() -> int:
 
     while tick < MIN_TICKS or (wanting() and tick < MAX_TICKS):
         u0, u1 = uniforms()
-        a0 = pbot(s, 0, u0)
-        a1 = pbot(s, 1, u1)
-        c0 = penv.decode(s, a0, 0)
-        s1 = peng.issue_env(s, c0)
-        c1 = penv.decode(s1, a1, 1)
-        s2 = peng.issue_env(s1, c1)
+        a0 = kbot(s, 0, u0)
+        a1 = kbot(s, 1, u1)
+        c0 = kenv.decode(s, a0, 0)
+        s1 = keng.issue_env(s, c0)
+        c1 = kenv.decode(s1, a1, 1)
+        s2 = keng.issue_env(s1, c1)
         comp = s2.busy & (s2.aticks <= 1)
         ev = dict(busy=int(s.busy.sum()),
                   produce_kept=int((c0.atype == PRODUCE).sum()
@@ -861,17 +955,26 @@ def main() -> int:
                   ret=int((comp & (s2.atype == RETURN)).sum()))
         new_kind = any(ev[k] and not seen[k] for k in ev)
         more_attacks = ev["attack"] and seen["attack"] < MIN_ATTACKS
-        if new_kind or more_attacks or tick in (MIN_TICKS // 2, MIN_TICKS - 1):
+        keep = (new_kind or more_attacks
+                or tick in (MIN_TICKS // 2, MIN_TICKS - 1))
+        if keep:
+            a0 = pbot(s, 0, u0)
+            a1 = pbot(s, 1, u1)
+            c0 = penv.decode(s, a0, 0)
+            s1 = peng.issue_env(s, c0)
+            c1 = penv.decode(s1, a1, 1)
+            s2 = peng.issue_env(s1, c1)
             records.append(dict(tick=tick, s=s, u0=u0, u1=u1, a0=a0, a1=a1,
                                 s1=s1, c0=c0, c1=c1, s2=s2, ev=ev))
             for k in ev:
                 seen[k] += ev[k]
-        s, _ = peng.cycle(s2)
-        if records and records[-1]["tick"] == tick:
+        s, _ = (peng if keep else keng).cycle(s2)
+        if keep:
             records[-1]["post"] = s
         tick += 1
     torch.cuda.synchronize()
-    print(f"[3] {tick} plain ticks in {time.perf_counter() - t0:.1f} s; "
+    print(f"[3] {tick} ticks ({len(records)} of them also on the plain "
+          f"path) in {time.perf_counter() - t0:.1f} s; "
           f"{len(records)} recorded ticks {[r['tick'] for r in records]}; "
           f"events in them {seen}", flush=True)
     missing = [k for k, v in seen.items() if v == 0]
@@ -890,23 +993,25 @@ def main() -> int:
     r["tick"] = f"{r['tick']} (terminal)"
     records.append(r)
 
-    # rush states: plain WorkerRush (player 0) against LightRush (player
-    # 1); env k opens with RUSH_OPEN * (k % 32) ticks of RandomBiasedAI
+    # rush states: WorkerRush (player 0) against LightRush (player 1) on
+    # the kernel path (they are inputs only: [4] holds every kernel against
+    # its plain version on them); env k opens with RUSH_OPEN * (k % 32)
+    # ticks of RandomBiasedAI
     t0 = time.perf_counter()
-    prush = (S.worker_rush(penv), S.light_rush(penv))
-    s = penv.reset(B)
+    rushers = (S.worker_rush(kenv), S.light_rush(kenv))
+    s = kenv.reset(B)
     opening = (RUSH_OPEN * (torch.arange(B, device=dev) % 32))[
         :, None, None, None]
     rush_records = []
     for tick in range(RUSH_TICKS):
         if tick % RUSH_EVERY == RUSH_EVERY - 1:
             rush_records.append(s)
-        a0, a1 = prush[0](s, 0), prush[1](s, 1)
+        a0, a1 = rushers[0](s, 0), rushers[1](s, 1)
         if tick < RUSH_OPEN * 31:
             u0, u1 = uniforms()
-            a0 = torch.where(tick < opening, pbot(s, 0, u0), a0)
-            a1 = torch.where(tick < opening, pbot(s, 1, u1), a1)
-        s, _, _ = penv.step(s, a0, a1)
+            a0 = torch.where(tick < opening, kbot(s, 0, u0), a0)
+            a1 = torch.where(tick < opening, kbot(s, 1, u1), a1)
+        s, _, _ = kenv.step(s, a0, a1)
     rush_start = s
     # every base removed, resources raised, in half the envs (rebuilds)
     base = ((s.utype == kenv.cfg.base_id + 1)
@@ -915,23 +1020,32 @@ def main() -> int:
                                   owner=torch.where(base, -1, s.owner),
                                   resources=s.resources.clamp(min=20)))
     torch.cuda.synchronize()
-    print(f"    {RUSH_TICKS} plain WorkerRush-vs-LightRush ticks in "
+    print(f"    {RUSH_TICKS} WorkerRush-vs-LightRush ticks in "
           f"{time.perf_counter() - t0:.1f} s; {len(rush_records)} recorded "
           f"(the last with bases removed)", flush=True)
 
-    # PO step inputs: the plain PO path from the end of the rush run (units
-    # in contact, so that hidden units' claims meet visible ones), the
-    # conflicts of each kind counted at every issue, the inputs kept every
-    # PO_RECORD_EVERY ticks and where a kind first occurs
+    # PO step inputs: the PO path from the end of the rush run (units in
+    # contact, so that hidden units' claims meet visible ones) on the
+    # kernels, every PO_RECORD_EVERY-th tick on the plain path, which
+    # counts the conflicts of each kind at its issues; those ticks' inputs
+    # and outputs are kept
     t0 = time.perf_counter()
     kpo = GridnetEnv(path, partial_obs=True, device=dev)
     ppo = GridnetEnv(path, partial_obs=True, device=dev, plain=True)
     ppbot = random_bot(ppo, BIAS)
+    kppbot = random_bot(kpo, BIAS)
     s = rush_start
     po_records = []
     po_seen = {k: 0 for k in peng.ISSUE_CONFLICTS}
     for tick in range(PO_TICKS):
         u0, u1 = uniforms()
+        if tick % PO_RECORD_EVERY:
+            a0, a1 = kppbot(s, 0, u0), kppbot(s, 1, u1)
+            c0 = kpo.decode(s, a0, 0, view=kpo.po_view(s, 0))
+            s1 = kpo.engine.issue(s, c0)
+            c1 = kpo.decode(s1, a1, 1, view=kpo.po_view(s1, 1))
+            s, _ = kpo.engine.cycle(kpo.engine.issue(s1, c1))
+            continue
         a0, a1 = ppbot(s, 0, u0), ppbot(s, 1, u1)
         cnt = {}
         v0 = ppo.po_view(s, 0)
@@ -940,24 +1054,23 @@ def main() -> int:
         v1 = ppo.po_view(s1, 1)
         c1 = ppo.decode(s1, a1, 1, view=v1)
         s2 = ppo.engine.issue_plain(s1, c1, counts=cnt)
-        if tick % PO_RECORD_EVERY == 0 or any(
-                cnt[k] and not po_seen[k] for k in cnt):
-            po_records.append(dict(tick=tick, s=s, a0=a0, a1=a1, v0=v0,
-                                   c0=c0, s1=s1, v1=v1, c1=c1, cnt=cnt))
+        po_records.append(dict(tick=tick, s=s, a0=a0, a1=a1, v0=v0,
+                               c0=c0, s1=s1, v1=v1, c1=c1, cnt=cnt))
         for k in cnt:
             po_seen[k] += cnt[k]
         s, _ = ppo.engine.cycle(s2)
     po_start = s
     torch.cuda.synchronize()
-    print(f"    {PO_TICKS} plain PO ticks in {time.perf_counter() - t0:.1f} "
+    print(f"    {PO_TICKS} PO ticks in {time.perf_counter() - t0:.1f} "
           f"s; {len(po_records)} recorded {[r['tick'] for r in po_records]}; "
-          f"conflicts at its issues {po_seen}", flush=True)
+          f"conflicts at their plain issues {po_seen}", flush=True)
 
     # the policy: seeded, full width, bf16 activations
     space = ActionSpace(cfg.num_types, 2 * cfg.max_range + 1)
     net = GridnetPolicy(space, 20 + cfg.num_types).init_params(
         torch.Generator().manual_seed(0)).to(dev)
 
+    lap("[3]")
     # ---- [4] every kernel against its plain version, on every record
     errs = {k.name: 0 for k in KN.KERNELS}
     terminal = 0
@@ -1046,6 +1159,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"the rush records exercise no {missing}")
 
+    lap("[4] rush")
     # K8: the jump in both modes (playout_step's, and fast_forward's gated
     # step with done lanes), with and without a per-lane cap, on the
     # post-issue states (every unit busy), the pre-step states, the
@@ -1109,6 +1223,7 @@ def main() -> int:
           f"views (Sqrt family exact, the others within {EVAL_RTOL} "
           f"relative)", flush=True)
 
+    lap("[4] event_jump, cycle, evaluate")
     # K7b on the policy's logits over four recorded ticks (a minibatch of
     # 4096 samples, as phase 7's updates have), upstream weights normal
     lp_recs = records[::5][:LOGPROB_RECORDS]
@@ -1199,18 +1314,18 @@ def main() -> int:
         raise AssertionError(f"the arm_sample inputs miss a case: "
                              f"{arm_cases}")
     # K12c/d: every 5th mcts_descend / uct_select / uct_descend /
-    # mcts_backprop call of two plain searches (NaiveMCTS with eps_g 0.3,
+    # mcts_backprop call of two searches on the kernel path (NaiveMCTS with eps_g 0.3,
     # so that the global bandit's random slot is read, and UCT; 6 nodes,
     # so that the trees fill) on 16 rush records, each held kernel vs
     # plain from the same copies
     tree_state = State(**{f: getattr(rush_records[3], f)[:TREE_GAMES]
                           for f in FIELD_DTYPES})
     snaps = record_tree_calls(TS, lambda: tree_decision(
-        penv, TS.naive_mcts_bot, dict(TREE_CHECK, eps_g=0.3,
+        kenv, TS.naive_mcts_bot, dict(TREE_CHECK, eps_g=0.3,
                                       max_nodes=SNAP_NODES), tree_state,
         31), TREE_SNAPSHOT_EVERY)
     usnaps = record_tree_calls(TS, lambda: tree_decision(
-        penv, TS.uct_tree_bot, dict(UCT_CHECK, max_nodes=SNAP_NODES),
+        kenv, TS.uct_tree_bot, dict(UCT_CHECK, max_nodes=SNAP_NODES),
         tree_state, 32), TREE_SNAPSHOT_EVERY)
     tree_cases = dict(expanded=0, matched_or_global=0, leaf=0, full=0)
     for which, snap in (("naive", snaps), ("uct", usnaps)):
@@ -1243,16 +1358,17 @@ def main() -> int:
           f"random visit tables; cells {arm_cases}) and arms_to_action on "
           f"{len(records[::3])} records, the per-lane player of actor and "
           f"decode, and {sum(map(len, snaps.values()))} + "
-          f"{sum(map(len, usnaps.values()))} node-array updates of plain "
+          f"{sum(map(len, usnaps.values()))} node-array updates of "
           f"NaiveMCTS and UCT searches ({TREE_GAMES} games; steps "
           f"{tree_cases}) equal to plain", flush=True)
+    lap("[4] policy, arms, tree nodes")
     # K12e: enum_next, eight successive draws of both players' odometers
     # from init (four with every lane drawing, four with every other
-    # lane), on every 3rd recorded tick, every 4th rush record, a record
+    # lane), on every 6th recorded tick, every 4th rush record, a record
     # where no unit can act and a resource-tight one
     t1 = time.perf_counter()
     rs3 = rush_records[3]
-    ens = ([r["s"] for r in records[::3]] + rush_records[1::4]
+    ens = ([r["s"] for r in records[::6]] + rush_records[1::4]
            + [rs3.replace(busy=rs3.utype > 0),
               rs3.replace(resources=rs3.resources.clamp(max=2))])
     enum_stats = dict(draws=0, valid=0, empty=0, exhausted=0, max_trips=0)
@@ -1284,13 +1400,13 @@ def main() -> int:
         raise AssertionError(f"the enum_next inputs miss a case: "
                              f"{enum_stats}")
     # K12f: every 5th minimax_step call (and every one that pops a root
-    # child) of plain ABCD and RTMinimax searches of 16 rush records, each
+    # child) of ABCD and RTMinimax searches on the kernel path of 16 rush records, each
     # held kernel vs plain from the same copies
     msnaps = []
     for name in ("ABCD", "RTMinimax"):
         for p in (0, 1):
             msnaps += record_minimax_calls(MM, lambda: minimax_decision(
-                penv, MM, name, dict(MM_REDUCED[name],
+                kenv, MM, name, dict(MM_REDUCED[name],
                                      node_budget=MM_SNAPSHOT_BUDGET),
                 tree_state, 33, p), MM_SNAPSHOT_EVERY)
     # A search never draws past its node's last joint action (all NONE,
@@ -1325,10 +1441,11 @@ def main() -> int:
     print(f"    enum_next on {len(ens)} records x {B} lanes (the last two "
           f"with no unit able to act and with the balance at most 2), both "
           f"players, 8 draws each ({enum_stats}), and {len(msnaps)} "
-          f"minimax_step calls of plain ABCD and RTMinimax searches "
+          f"minimax_step calls of ABCD and RTMinimax searches "
           f"({TREE_GAMES} games; lanes {mm_cases}, the exhausted draws "
           f"on the trips with the pushes cleared) equal to plain "
           f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    lap("[4] enum_next, minimax_step")
     # K11a: issue on both issues of every PO record under the three
     # policies, and on two-issue random candidate tables (half the units,
     # then the others on the result) over PO and rush records with the
@@ -1421,6 +1538,7 @@ def main() -> int:
           f"{len(fog_inputs)} records x 3 player views (enemy units "
           f"{fog_seen}), decode with a view on {len(po_records)} x 2, equal "
           f"to plain ({time.perf_counter() - t1:.1f} s)", flush=True)
+    lap("[4] issue, fog")
     # K13: believe_update (init, update and the sampled world) of the
     # three levels for both observers along the PO records (memories made
     # at the first, the seen types cleared in half the lanes so that
@@ -1492,6 +1610,7 @@ def main() -> int:
           f"{bel_rules}), mcts_reroot on {TREE_GAMES} trees after a real "
           f"step (lanes {reroot_cases}), equal to plain "
           f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    lap("[4] believe_update, mcts_reroot")
     # slice 9 (K5 rest, K6 rest): cycle under UTT v3 with the cells'
     # uniforms (and active lanes), the epilogue with all eight rewards,
     # env_health on planted faults and healthy lanes, on every record
@@ -1545,6 +1664,140 @@ def main() -> int:
           f"non-zero) and env_health ({flagged} lanes flagged, 6 of every "
           f"{FAULT_LANES} planted) equal to plain on {len(records)} "
           f"records ({time.perf_counter() - t1:.1f} s)", flush=True)
+    lap("[4] slice 9")
+    # slice 10 (K9 rest, the expert and DSL stencils): the standalone
+    # fields on every 2nd rush record and every 4th PO record (the enemy, the
+    # resources and the own bases of both players, the two nearest
+    # distinct own units) and on a planted serpentine maze longer than
+    # H+W; expert_macro for every macro and both players with role tables
+    # carried along the rush records by a plain run; expert_detailed on
+    # seeded logits; range_cover and dsl_target under the seven policies
+    t1 = time.perf_counter()
+    xk, xp = ExpertEnv(kenv), ExpertEnv(penv)
+    scan = scan_offsets(cfg.max_range)
+    x_inputs = rush_records[::2] + [r["s"] for r in po_records[::4]]
+    maze = penv.reset(B)
+    mz = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    for row in range(1, H - 1, 2):     # walls with one gap, alternating
+        mz[row] = True
+        mz[row, (W - 1) if (row // 2) % 2 == 0 else 0] = False
+    maze = maze.replace(terrain=torch.where(mz & (maze.utype == 0), 1,
+                                            maze.terrain).to(torch.int8))
+    x_inputs.append(maze)
+    iters = H + W
+    far = 0
+    for st in x_inputs:
+        exists = st.utype > 0
+        t_ = (st.utype.long() - 1).clamp(0, cfg.num_types - 1)
+        passable = (st.terrain == 0) & ~exists
+        free_n = torch.stack([pull(passable, d, False) for d in range(4)],
+                             -1)
+        res = exists & peng.lut("is_resource", dev)[t_]
+        flat = (torch.arange(H * W, device=dev, dtype=torch.int32)
+                .reshape(H, W).expand(B, H, W).contiguous())
+        for p in (0, 1):
+            mine = exists & (st.owner == p)
+            enemy = exists & (st.owner >= 0) & (st.owner != p)
+            src3 = torch.stack([enemy, res, mine & peng.lut(
+                "is_stockpile", dev)[t_]], 1)
+            kd = KN.DISTANCE_FIELDS(src3, passable, iters)
+            errs["distance_fields"] = max(errs["distance_fields"],
+                                          expect_equal("distance_fields", [(
+                                              "fields", kd,
+                                              FLD.distance_fields_plain(
+                                                  src3, passable, iters))]))
+            far += int(((kd == (1 << 30)) & passable[:, None]).sum())
+            for f in range(3):
+                df = kd[:, f].contiguous()
+                errs["descend_direction"] = max(
+                    errs["descend_direction"], expect_equal(
+                        "descend_direction", [("dir", KN.DESCEND(df, free_n),
+                                               FLD.descend_direction_plain(
+                                                   df, free_n))]))
+            kst = KN.DISTANCE_FIELD2(mine, passable, iters)
+            errs["distance_field2"] = max(errs["distance_field2"],
+                                          expect_equal("distance_field2", [
+                                              (n, a, b) for n, a, b in zip(
+                                                  ("d1", "i1", "d2", "i2"),
+                                                  kst,
+                                                  FLD.distance_field2_plain(
+                                                      mine, passable,
+                                                      iters))]))
+            errs["descend_direction_excluding"] = max(
+                errs["descend_direction_excluding"], expect_equal(
+                    "descend_direction_excluding", [(
+                        "dir", KN.DESCEND_EXCLUDING(kst, free_n, flat),
+                        FLD.descend_direction_excluding_plain(
+                            kst, free_n, flat))]))
+            rng_p = peng.lut("attack_range", dev)[t_]
+            dmg_p = peng.lut("max_damage", dev)[t_]
+            for cov in (mine, enemy):
+                errs["range_cover"] = max(errs["range_cover"], expect_equal(
+                    "range_cover", [("cover", KN.RANGE_COVER(cfg, st, cov),
+                                     DSL.range_cover_plain(
+                                         cov, rng_p, cfg.max_range))]))
+            u_rel = torch.rand((B, (2 * cfg.max_range + 1) ** 2, H, W),
+                               generator=gen, device=dev)
+            for pol, mode in DSL.TARGET_MODES.items():
+                kt_, kf_ = KN.DSL_TARGET(cfg, st, p, mode, u_rel, scan)
+                pt_, pf_ = DSL.dsl_target_plain(mode, enemy, st.hp, dmg_p,
+                                                rng_p, cfg.max_range, u_rel)
+                errs["dsl_target"] = max(errs["dsl_target"], expect_equal(
+                    f"dsl_target {pol}", [("rel", kt_, pt_),
+                                          ("found", kf_, pf_)]))
+    if far == 0:
+        raise AssertionError("no passable cell beyond H+W sweeps")
+    # expert_macro: roles carried along the rush records by a plain run of
+    # macros drawn from the action mask; every macro on every record
+    x_roles = [ExpertRoles.init(B, dev), ExpertRoles.init(B, dev)]
+    macro_acts = {}
+    for i, st in enumerate(rush_records):
+        for p in (0, 1):
+            for m in range(NUM_MACROS) if i % 3 == 0 else ():
+                nz = ExpertNoise.draw(gen, B, kenv)
+                mac = torch.full((B,), m, dtype=torch.int32, device=dev)
+                ka, kr = xk.macro_to_gridnet(st, x_roles[p], p, mac, nz)
+                pa, pr = xp.macro_to_gridnet(st, x_roles[p], p, mac, nz)
+                errs["expert_macro"] = max(errs["expert_macro"], expect_equal(
+                    f"expert_macro record {i} p{p} macro {m}",
+                    [("actions", ka, pa)] + [
+                        (f, getattr(kr, f), getattr(pr, f))
+                        for f in ExpertRoles.FIELDS]))
+                macro_acts[m] = macro_acts.get(m, 0) + int(
+                    ((ka[..., 0] > 0) & (st.owner == p)).sum())
+            mac = torch.multinomial(xp.action_mask(st, x_roles[p], p)
+                                    .float(), 1, generator=gen)[:, 0].int()
+            x_roles[p] = xp.macro_to_gridnet(st, x_roles[p], p, mac,
+                                             ExpertNoise.draw(gen, B,
+                                                              kenv))[1]
+    carried = [int(r.harvester.sum() + r.has_target.sum()) for r in x_roles]
+    if min(carried) == 0:
+        raise AssertionError(f"expert roles carried {carried}")
+    det_acts = 0
+    for st in rush_records[::3]:
+        for p in (0, 1):
+            tl = torch.randn((B, cfg.num_types), generator=gen, device=dev)
+            ml = torch.randn((B, H, W), generator=gen, device=dev)
+            dn = DetailedNoise.draw(gen, B, kenv)
+            ka = KN.EXPERT_DETAILED(cfg, st, p, tl, ml, dn)
+            errs["expert_detailed"] = max(errs["expert_detailed"],
+                                          expect_equal("expert_detailed", [(
+                                              "actions", ka,
+                                              detailed_to_gridnet_plain(
+                                                  xp, st, p, tl, ml, dn))]))
+            det_acts += int((ka[..., 0] > 0).sum())
+            del dn
+    torch.cuda.synchronize()
+    print(f"    slice 10: distance_fields, descend_direction, "
+          f"distance_field2, descend_direction_excluding, range_cover and "
+          f"dsl_target (seven policies) on {len(x_inputs)} records x 2 "
+          f"players (the maze and {far} cells beyond {iters} sweeps), "
+          f"expert_macro (13 macros x 2 players on every 3rd of "
+          f"{len(rush_records)} rush records, roles carried along all "
+          f"{carried}, acting cells by macro "
+          f"{macro_acts}) and expert_detailed ({det_acts} acting cells) "
+          f"equal to plain ({time.perf_counter() - t1:.1f} s)", flush=True)
+    lap("[4] slice 10")
     print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
           f"(max |diff| {errs})", flush=True)
 
@@ -1644,7 +1897,7 @@ def main() -> int:
         FP32_OPS_PER_S)
     # rush (WorkerRush for player 1 on the last rush record): six state
     # planes and the resources in, the actions out; three fields of
-    # iters = H + W sweeps, ~13 integer operations per cell and sweep
+    # iters = H + W sweeps, FIELD_OPS integer operations a cell and sweep
     rs = rush_records[-1]
     wr = rush_plans["WorkerRush"]
     timing["rush"] = (
@@ -1652,7 +1905,7 @@ def main() -> int:
         lambda: S.rush_bot_plain(penv, wr, rs, 1),
         nbytes(rs.utype, rs.owner, rs.busy, rs.terrain, rs.carried, rs.uid,
                rs.resources) + B * H * W * 7 * 4,
-        3 * wr.iters * B * H * W * 13, INT32_OPS_PER_S)
+        3 * wr.iters * B * H * W * FIELD_OPS, INT32_OPS_PER_S)
     # event_jump (fast_forward's gated step, capped): utype, owner, busy,
     # aticks, time, done and t_end in; aticks, time and take out
     jd = torch.rand(B, generator=gen, device=dev) < 0.1
@@ -1747,7 +2000,7 @@ def main() -> int:
     def odometers(n):
         return iter([EN.Odometer(eod.choice.clone(), eod.more.clone())
                      for _ in range(n)])
-    kods, pods = odometers(403), odometers(43)
+    kods, pods = odometers(403), odometers(2 * PLAIN_REPS + 1)
     kn_t, pn_t = EN.make_enumerator(kenv)[1], EN.make_enumerator(penv)[1]
     timing["enum_next"] = (lambda: kn_t(next(kods), ectx),
                            lambda: pn_t(next(pods), ectx),
@@ -1781,7 +2034,7 @@ def main() -> int:
                 + n_can * (M - 1) * 4 + firsts * HW * 4
                 + int((mtrip.live & ~mtrip.finish & ~mpush).sum()) * 8)
     kst_pool = iter([mstk.clone() for _ in range(403)])
-    pst_pool = iter([mstk.clone() for _ in range(43)])
+    pst_pool = iter([mstk.clone() for _ in range(2 * PLAIN_REPS + 1)])
     timing["minimax_step"] = (
         lambda: MM.minimax_step(kenv, next(kst_pool), mtrip, mmaxp),
         lambda: MM.minimax_step(penv, next(pst_pool), mtrip, mmaxp),
@@ -1848,13 +2101,89 @@ def main() -> int:
                 "utype", "owner", "hp", "uid", "busy", "atype", "aparam",
                 "atx", "aty")],
             *mem_tensors(bmem), *bout.values(), *bworld.values()))
+    # slice 10 (player 1 on the last full rush record): distance_fields
+    # (the three fields: the sources and the passable plane in, the int32
+    # fields out; 3 x (H+W) sweeps x FIELD_OPS a cell), descend_direction
+    # (a field and the free sides in, the directions out), distance_field2
+    # (two planes in, four out; FIELD2_OPS a cell and sweep) and its
+    # descent (three planes, the free sides and the ids in), expert_macro
+    # (six state planes, the pick uniforms, the role tables in and out,
+    # the actions out; five fields inside), expert_detailed (five state
+    # planes, the logits and the noise in, the actions out), range_cover
+    # (the types and the mask in, the cover out; COVER_OPS an offset) and
+    # dsl_target (Weakest: three state planes in, the index and the flag
+    # out; TARGET_OPS an offset)
+    xs_ = rush_records[-2]
+    cells = B * H * W
+    xt = (xs_.utype.long() - 1).clamp(0, cfg.num_types - 1)
+    xpas = (xs_.terrain == 0) & (xs_.utype == 0)
+    xfree = torch.stack([pull(xpas, d, False) for d in range(4)], -1)
+    xmine = (xs_.utype > 0) & (xs_.owner == 1)
+    xen = (xs_.utype > 0) & (xs_.owner == 0)
+    xsrc = torch.stack([xen, (xs_.utype > 0) & peng.lut(
+        "is_resource", dev)[xt], xmine & peng.lut("is_stockpile", dev)[xt]],
+        1)
+    xd0 = KN.DISTANCE_FIELDS(xsrc, xpas, H + W)[:, 0].contiguous()
+    xst = KN.DISTANCE_FIELD2(xmine, xpas, H + W)
+    xflat = (torch.arange(H * W, device=dev, dtype=torch.int32)
+             .reshape(H, W).expand(B, H, W).contiguous())
+    xroles = x_roles[1]
+    xmac = torch.multinomial(xp.action_mask(xs_, xroles, 1).float(), 1,
+                             generator=gen)[:, 0].int()
+    xnz = ExpertNoise.draw(gen, B, kenv)
+    xtl = torch.randn((B, cfg.num_types), generator=gen, device=dev)
+    xml = torch.randn((B, H, W), generator=gen, device=dev)
+    xdn = DetailedNoise.draw(gen, B, kenv)
+    planes6 = [getattr(xs_, f) for f in ("utype", "owner", "busy", "terrain",
+                                          "uid", "carried")]
+    role_b = nbytes(*[getattr(xroles, f) for f in ExpertRoles.FIELDS])
+    timing["distance_fields"] = (
+        lambda: KN.DISTANCE_FIELDS(xsrc, xpas, H + W),
+        lambda: FLD.distance_fields_plain(xsrc, xpas, H + W),
+        nbytes(xsrc, xpas) + 3 * 4 * cells, 3 * (H + W) * FIELD_OPS * cells,
+        INT32_OPS_PER_S)
+    timing["descend_direction"] = (
+        lambda: KN.DESCEND(xd0, xfree),
+        lambda: FLD.descend_direction_plain(xd0, xfree),
+        nbytes(xd0, xfree) + 4 * cells)
+    timing["distance_field2"] = (
+        lambda: KN.DISTANCE_FIELD2(xmine, xpas, H + W),
+        lambda: FLD.distance_field2_plain(xmine, xpas, H + W),
+        nbytes(xmine, xpas) + 4 * 4 * cells, (H + W) * FIELD2_OPS * cells,
+        INT32_OPS_PER_S)
+    timing["descend_direction_excluding"] = (
+        lambda: KN.DESCEND_EXCLUDING(xst, xfree, xflat),
+        lambda: FLD.descend_direction_excluding_plain(xst, xfree, xflat),
+        nbytes(*xst[:3], xfree, xflat) + 4 * cells)
+    timing["expert_macro"] = (
+        lambda: KN.EXPERT_MACRO(kenv.cfg, xs_, xroles, 1, xmac, xnz, scan),
+        lambda: xp.macro_to_gridnet_plain(xs_, xroles, 1, xmac, xnz),
+        nbytes(*planes6, xmac, *xnz) + 2 * role_b + 28 * cells,
+        5 * (H + W) * FIELD_OPS * cells, INT32_OPS_PER_S)
+    timing["expert_detailed"] = (
+        lambda: KN.EXPERT_DETAILED(cfg, xs_, 1, xtl, xml, xdn),
+        lambda: detailed_to_gridnet_plain(xp, xs_, 1, xtl, xml, xdn),
+        nbytes(*planes6[:4], xs_.carried, xtl, xml, *xdn) + 28 * cells)
+    timing["range_cover"] = (
+        lambda: KN.RANGE_COVER(cfg, xs_, xmine),
+        lambda: DSL.range_cover_plain(xmine, peng.lut("attack_range", dev)[
+            xt], cfg.max_range),
+        nbytes(xs_.utype, xmine) + cells, len(scan) * COVER_OPS * cells,
+        INT32_OPS_PER_S)
+    timing["dsl_target"] = (
+        lambda: KN.DSL_TARGET(cfg, xs_, 1, 2, None, scan),
+        lambda: DSL.dsl_target_plain(
+            2, xen, xs_.hp, peng.lut("max_damage", dev)[xt],
+            peng.lut("attack_range", dev)[xt], cfg.max_range),
+        nbytes(xs_.utype, xs_.owner, xs_.hp) + 5 * cells,
+        len(scan) * TARGET_OPS * cells, INT32_OPS_PER_S)
     del kview, kvis, kobs_po, iout
     assert A == lg.shape[-1]
     times = {}
     print("    device time per call (queued; host-paced in brackets):")
     for name, (kfn, pfn, byts, *ops) in timing.items():
         kms, kpaced = cuda_ms(kfn, n=200)
-        pms, ppaced = cuda_ms(pfn, n=20)
+        pms, ppaced = cuda_ms(pfn, n=PLAIN_REPS, warm=1)
         bound = byts / HBM_BYTES_PER_S * 1e3
         op_bound = ops[0] / ops[1] * 1e3 if ops else 0.0
         by = "operations" if op_bound > bound else "bytes"
@@ -1863,7 +2192,7 @@ def main() -> int:
               f"us  plain {pms * 1e3:9.2f} ({ppaced * 1e3:9.2f}) us  bound "
               f"{max(bound, op_bound) * 1e3:6.2f} us by {by} "
               f"({byts / 1e6:.2f} MB)", flush=True)
-    del lg, lmask, lact, plg, plp, pent, pobj
+    del lg, lmask, lact, plg, plp, pent, pobj, xdn
     timing.clear()   # the timed copies of odometers and stacks
     # the slice-9 variants of two kernels beside their v2 figures above:
     # cycle under UTT v3 (the uniforms read too), the epilogue with the
@@ -1885,7 +2214,7 @@ def main() -> int:
     variant_times = {}
     for (name, var), (kfn, pfn, byts) in variants.items():
         kms, kpaced = cuda_ms(kfn, n=200)
-        pms, ppaced = cuda_ms(pfn, n=20)
+        pms, ppaced = cuda_ms(pfn, n=PLAIN_REPS, warm=1)
         bound = byts / HBM_BYTES_PER_S * 1e3
         variant_times[name] = {var: dict(ms=kms, plain_ms=pms,
                                          bound_ms=bound, bound_by="bytes")}
@@ -1895,6 +2224,7 @@ def main() -> int:
               f"bytes ({byts / 1e6:.2f} MB)", flush=True)
     del variants
 
+    lap("[4] the timings")
     # ---- [5] the main path through the kernels, next to the plain path
     kvec = VecGridnetEnv(kenv, B, max_steps=MAX_STEPS)
     pvec = VecGridnetEnv(penv, B, max_steps=MAX_STEPS)
@@ -1926,7 +2256,10 @@ def main() -> int:
                 arm_sample=0, arms_to_action=0, mcts_descend=0,
                 mcts_backprop=0, enum_next=0, minimax_step=0, issue=0,
                 po_state=0, obs_po=0, mcts_reroot=0, believe_update=0,
-                env_health=0)
+                env_health=0, distance_fields=0, descend_direction=0,
+                distance_field2=0, descend_direction_excluding=0,
+                expert_macro=0, expert_detailed=0, range_cover=0,
+                dsl_target=0)
     if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
@@ -1955,6 +2288,7 @@ def main() -> int:
           f"{sps_plain:.1f} (B={B}, 16x16, {TIME_TICKS} steps; {kind}, "
           f"{smi})", flush=True)
 
+    lap("[5]")
     # ---- [6] the rollout through the kernels, next to the plain path
     t0 = time.perf_counter()
     pcfg = PPOConfig(num_envs=B, rollout_len=1, max_steps=MAX_STEPS)
@@ -2023,6 +2357,7 @@ def main() -> int:
           f"{rsps_plain:.1f} (B={B}, 16x16, bf16 policy 64x4, "
           f"{ROLL_TIME_STEPS} steps; {kind}, {smi})", flush=True)
 
+    lap("[6]")
     # ---- [7] training: PPOTrainer.update through the kernels next to the
     # plain path, from the same mid-game rush state with the same noise;
     # beside them the witness, the plain path with the logits' gradient
@@ -2250,6 +2585,7 @@ def main() -> int:
           f"{learn_s:.3f} s; peak device memory {peak / 2**30:.2f} GiB; "
           f"metrics {runs[-1][3]}; {kind}, {smi})", flush=True)
 
+    lap("[7]")
     # ---- [8] the round robin of six bots on basesWorkers16x16: 30 ordered
     # pairs x 34 games = 1020 lanes of one pool batch through
     # TN.round_robin, the kernel path next to the plain path (same seed) at
@@ -2309,17 +2645,20 @@ def main() -> int:
           f"winners, table; {lane_ticks(ks)} game ticks); launches "
           f"{rr_check_counts} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
-    # the round robin's 40 cycles end no game: finished games (winners,
-    # frozen lanes) are held in a pairing that ends early, capped a little
-    # after WorkerRush's first wins
+    # the round robin's check ends no game: finished games (winners,
+    # frozen lanes) are held in a pairing that ends early, on 8x8, capped
+    # a little after WorkerRush's first wins
     t1 = time.perf_counter()
-    out = [matches(env, "RandomBiasedAI", "WorkerRush", WIN_CHECK_GAMES,
-                   WIN_CHECK_CYCLES, 3, chunk=32) for env in (kenv, penv)]
+    out = [matches(GridnetEnv(asset_path(WIN_CHECK_MAP), device=dev,
+                              plain=plain),
+                   "RandomBiasedAI", "WorkerRush", WIN_CHECK_GAMES,
+                   WIN_CHECK_CYCLES, 3, chunk=32) for plain in (False, True)]
     expect_equal("RandomBiasedAI vs WorkerRush", state_pairs(
         out[0][1], out[1][1]) + [("winners", out[0][0], out[1][0])])
     won = int((out[0][0] >= 0).sum())
-    print(f"    RandomBiasedAI vs WorkerRush (play_matches): "
-          f"{WIN_CHECK_GAMES} games to {WIN_CHECK_CYCLES} cycles "
+    print(f"    RandomBiasedAI vs WorkerRush (play_matches on "
+          f"{WIN_CHECK_MAP}): {WIN_CHECK_GAMES} games to {WIN_CHECK_CYCLES} "
+          f"cycles "
           f"({out[0][2]} frames) identical to the plain path, {won} won "
           f"(winners {torch.bincount(out[0][0] + 1, minlength=3).tolist()} "
           f"draw/p0/p1; game ends at ticks "
@@ -2337,9 +2676,8 @@ def main() -> int:
         raise AssertionError(f"the timed round robin launched {rr_counts}")
     if rr_table.wins.sum() == 0:
         raise AssertionError("no game of the round robin was won")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         _, _, pws, _ = rr(kenv, RR_PROFILE_CYCLES)
         window = (time.perf_counter() - t1) * 1e6
@@ -2355,6 +2693,7 @@ def main() -> int:
           f" us); launches {rr_counts}; {kind}, {smi}", flush=True)
     del ks, ps, rs, pws
 
+    lap("[8]")
     # ---- [9] MonteCarlo (K=12, playout_len 48, the JAX defaults) vs
     # WorkerRush: one decision on recorded rush states and short games,
     # the kernel path next to the plain path with the same draws; then
@@ -2412,6 +2751,7 @@ def main() -> int:
           f"{play_ticks / mc_sec:.1f} ({play_ticks} lane ticks, the first "
           f"tick included); {kind}, {smi}", flush=True)
 
+    lap("[9]")
     # ---- [10] evaluate: the seeded bf16 policy (64x4) vs WorkerRush, the
     # kernel path next to the plain path over short games (same seed), then
     # over 1024 games, timed
@@ -2454,6 +2794,7 @@ def main() -> int:
           f"{ev_sec:.2f} s; launches {ev_counts}; {kind}, {smi}",
           flush=True)
 
+    lap("[10]")
     # ---- [11] tree search: NaiveMCTS and UCT decisions of 16 recorded
     # rush games at a reduced budget and 16 NaiveMCTS-vs-WorkerRush games
     # to 4 cycles (play_matches), kernel vs plain with the same draws;
@@ -2461,9 +2802,11 @@ def main() -> int:
     # with short playouts, kernel vs plain, and one at the JAX defaults,
     # timed
     t0 = time.perf_counter()
-    for name, make, kw, seed in (("NaiveMCTS", TS.naive_mcts_bot,
-                                  TREE_CHECK, 41),
-                                 ("UCT", TS.uct_tree_bot, UCT_CHECK, 42)):
+    for name, make, kw, seed in (
+            ("NaiveMCTS", TS.naive_mcts_bot,
+             dict(TREE_CHECK, n_playouts=TREE_PLAYOUTS_11), 41),
+            ("UCT", TS.uct_tree_bot,
+             dict(UCT_CHECK, n_playouts=TREE_PLAYOUTS_11), 42)):
         KN.reset_counts()
         kt, ka = tree_decision(kenv, make, kw, tree_state, seed)
         kc = KN.counts()
@@ -2554,6 +2897,7 @@ def main() -> int:
               f"what the script held before); {kind}, {smi}", flush=True)
     print(f"    [11] took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    lap("[11]")
     # ---- [12] minimax: one decision of each of the six bots on the 16
     # recorded rush games at reduced budgets, kernel vs plain with the
     # same draws; 16 ABCD-vs-WorkerRush games to 4 cycles; then one
@@ -2697,6 +3041,7 @@ def main() -> int:
         mm_counts[name] = mm_phase[name]
     print(f"    [12] took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    lap("[12]")
     # ---- [13] the PO main path through the kernels, next to the plain
     # path: from the end of [3]'s PO run with random step counts (resets)
     t0 = time.perf_counter()
@@ -2861,6 +3206,7 @@ def main() -> int:
     print(f"    [13] took {time.perf_counter() - t0:.1f} s", flush=True)
     del ks, ps, pos_
 
+    lap("[13]")
     # ---- [14] the stateful bots: believe memories along a PO rush run
     # (kernel vs plain), warm decisions of BS3_NaiveMCTS and of
     # ContinuingNaiveMCTS over consecutive frames at the JAX defaults
@@ -2921,6 +3267,7 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     del bots, mems
 
+    lap("[14] believe memories")
     # timed decisions at the JAX defaults on the 64 recorded games
     seen_reroot = []
     real_reroot = TS.mcts_reroot
@@ -3123,6 +3470,7 @@ def main() -> int:
               f"({time.perf_counter() - t1:.1f} s)", flush=True)
     print(f"    [14] took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    lap("[14]")
     # ---- [15] slice 9 at full width: UTT v3, the eight rewards and the
     # quarantine on the vec step (kernel next to plain, then timed beside
     # slice 1's v2 step), a PPO update on that env, a CANCEL_RANDOM PO
@@ -3309,7 +3657,355 @@ def main() -> int:
           f"({time.perf_counter() - t1:.1f} s)", flush=True)
     print(f"    [15] took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- [16] results
+    lap("[15]")
+    # ---- [16] slice 10 at full width: the expert macro env (step_vs
+    # against WorkerRush, the detailed mode, self-play) and the DSL
+    # synthesis (evaluate_population on 1024 lanes, the CLI)
+    t0 = time.perf_counter()
+    kx, px = ExpertEnv(kenv), ExpertEnv(penv)
+    kwr, pwr = make_bot("WorkerRush", kenv), make_bot("WorkerRush", penv)
+    gen.manual_seed(16)
+
+    def macros(ex, st, roles, p):
+        return torch.multinomial(ex.action_mask(st, roles, p).float(), 1,
+                                 generator=gen)[:, 0].int()
+
+    def profiled(fn, n):
+        """(device busy share, wall us a tick) of ``n`` calls of fn."""
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t2 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t2) * 1e6
+        busy, _ = device_busy(prof)
+        return busy / window, window / n
+
+    # (a) step_vs: macros drawn from the action mask, kernel next to plain
+    ks, ps = kenv.reset(B), penv.reset(B)
+    kr, pr = ExpertRoles.init(B, dev), ExpertRoles.init(B, dev)
+    KN.reset_counts()
+    for t in range(EXPERT_CHECK_TICKS):
+        mac = macros(kx, ks, kr, 0)
+        nz = ExpertNoise.draw(gen, B, kenv)
+        ks, kr, krw, kd = kx.step_vs(ks, kr, mac, kwr, nz)
+        ps, pr, prw, pd = px.step_vs(ps, pr, mac, pwr, nz)
+        expect_equal(f"expert step_vs tick {t}", state_pairs(ks, ps) + [
+            (f, getattr(kr, f), getattr(pr, f)) for f in ExpertRoles.FIELDS]
+            + [("rewards", krw, prw), ("dones", kd, pd)])
+    xv_counts = KN.counts()
+    torch.cuda.synchronize()
+    want = dict(expert_macro=1, rush=1, decode=2, issue_env=2, cycle=1,
+                epilogue=1)
+    if xv_counts != {n: want.get(n, 0) * EXPERT_CHECK_TICKS
+                     for n in xv_counts}:
+        raise AssertionError(f"expert step_vs launch counts {xv_counts}, "
+                             f"want per step {want} and no other")
+    roles_used = (int(kr.harvester.sum()), int(kr.has_target.sum()))
+    if min(roles_used) == 0:
+        raise AssertionError(f"expert step_vs roles {roles_used}")
+    x_state = {"s": ks, "r": kr}
+
+    def expert_tick():
+        st, ro = x_state["s"], x_state["r"]
+        mac = macros(kx, st, ro, 0)
+        x_state["s"], x_state["r"], _, _ = kx.step_vs(
+            st, ro, mac, kwr, ExpertNoise.draw(gen, B, kenv))
+
+    for _ in range(3):
+        expert_tick()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    for _ in range(EXPERT_TIME_TICKS):
+        expert_tick()
+    torch.cuda.synchronize()
+    x_sps = B * EXPERT_TIME_TICKS / (time.perf_counter() - t1)
+    x_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    x_busy, x_us = profiled(expert_tick, EXPERT_PROFILE_TICKS)
+    print(f"[16] expert step_vs (macros drawn from the action mask, "
+          f"WorkerRush): {EXPERT_CHECK_TICKS} ticks of {B} envs identical "
+          f"to the plain path (states, roles {roles_used}, rewards, dones); "
+          f"launches per step "
+          f"{ {n: c // EXPERT_CHECK_TICKS for n, c in xv_counts.items() if c} }"
+          f"; timed {x_sps:.1f} env-steps/s/card (mask and draws included), "
+          f"busy {100 * x_busy:.1f}% of a profiled {EXPERT_PROFILE_TICKS}-"
+          f"step window ({x_us:.0f} us a step), peak {x_peak:.2f} GiB; "
+          f"{kind}, {smi} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # (b) the detailed mode (player 0, seeded logits per env) against
+    # WorkerRush through the self-play step, then the self-play macro step
+    t1 = time.perf_counter()
+    dtl = torch.randn((B, cfg.num_types), generator=gen, device=dev)
+    dml = torch.randn((B, H, W), generator=gen, device=dev)
+    ks, ps = kenv.reset(B), penv.reset(B)
+    KN.reset_counts()
+    for t in range(DETAILED_CHECK_TICKS):
+        dn = DetailedNoise.draw(gen, B, kenv)
+        ka = detailed_to_gridnet(kx, ks, 0, dtl, dml, dn)
+        pa = detailed_to_gridnet(px, ps, 0, dtl, dml, dn)
+        ks, krw, kd = kenv.step(ks, ka, kwr(ks, 1))
+        ps, prw, pd = penv.step(ps, pa, pwr(ps, 1))
+        expect_equal(f"detailed step tick {t}", state_pairs(ks, ps) + [
+            ("actions", ka, pa), ("rewards", krw, prw), ("dones", kd, pd)])
+    det_counts = KN.counts()
+    torch.cuda.synchronize()
+    g_mb = nbytes(*dn) / 1e6
+    del dn
+    if det_counts["expert_detailed"] != DETAILED_CHECK_TICKS:
+        raise AssertionError(f"detailed launch counts {det_counts}")
+    d_state = {"s": ks}
+
+    def detailed_tick():
+        st = d_state["s"]
+        a = detailed_to_gridnet(kx, st, 0, dtl, dml,
+                                DetailedNoise.draw(gen, B, kenv))
+        d_state["s"] = kenv.step(st, a, kwr(st, 1))[0]
+
+    for _ in range(2):
+        detailed_tick()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    for _ in range(DETAILED_TIME_TICKS):
+        detailed_tick()
+    torch.cuda.synchronize()
+    d_sps = B * DETAILED_TIME_TICKS / (time.perf_counter() - t2)
+    d_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    d_busy, d_us = profiled(detailed_tick, 10)
+    ks, ps = kenv.reset(B), penv.reset(B)
+    kr = [ExpertRoles.init(B, dev), ExpertRoles.init(B, dev)]
+    pr = [ExpertRoles.init(B, dev), ExpertRoles.init(B, dev)]
+    KN.reset_counts()
+    for t in range(SELFPLAY_CHECK_TICKS):
+        m0, m1 = macros(kx, ks, kr[0], 0), macros(kx, ks, kr[1], 1)
+        n0, n1 = (ExpertNoise.draw(gen, B, kenv) for _ in (0, 1))
+        ks, kr[0], kr[1], krw, kd = kx.step(ks, kr[0], kr[1], m0, m1, n0, n1)
+        ps, pr[0], pr[1], prw, pd = px.step(ps, pr[0], pr[1], m0, m1, n0, n1)
+        expect_equal(f"expert self-play tick {t}", state_pairs(ks, ps) + [
+            (f"{f} p{p}", getattr(kr[p], f), getattr(pr[p], f))
+            for p in (0, 1) for f in ExpertRoles.FIELDS]
+            + [("rewards", krw, prw), ("dones", kd, pd)])
+    sp_counts = KN.counts()
+    torch.cuda.synchronize()
+    if sp_counts["expert_macro"] != 2 * SELFPLAY_CHECK_TICKS or sp_counts[
+            "rush"]:
+        raise AssertionError(f"self-play launch counts {sp_counts}")
+    s_state = {"s": ks, "r": kr}
+
+    def selfplay_tick():
+        st, (r0, r1) = s_state["s"], s_state["r"]
+        m0, m1 = macros(kx, st, r0, 0), macros(kx, st, r1, 1)
+        st, r0, r1, _, _ = kx.step(st, r0, r1, m0, m1,
+                                   ExpertNoise.draw(gen, B, kenv),
+                                   ExpertNoise.draw(gen, B, kenv))
+        s_state["s"], s_state["r"] = st, [r0, r1]
+
+    for _ in range(3):
+        selfplay_tick()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(SELFPLAY_TIME_TICKS):
+        selfplay_tick()
+    torch.cuda.synchronize()
+    s_sps = B * SELFPLAY_TIME_TICKS / (time.perf_counter() - t2)
+    print(f"    detailed mode (player 0, seeded logits, vs WorkerRush): "
+          f"{DETAILED_CHECK_TICKS} ticks identical to the plain path "
+          f"(Gumbel noise {g_mb:.1f} MB a player a step), launches per step "
+          f"{ {n: c // DETAILED_CHECK_TICKS for n, c in det_counts.items() if c} }"
+          f"; timed {d_sps:.1f} env-steps/s/card (draws included), busy "
+          f"{100 * d_busy:.1f}% ({d_us:.0f} us a step), peak {d_peak:.2f} "
+          f"GiB; self-play macro step: {SELFPLAY_CHECK_TICKS} ticks "
+          f"identical, launches per step "
+          f"{ {n: c // SELFPLAY_CHECK_TICKS for n, c in sp_counts.items() if c} }"
+          f"; timed {s_sps:.1f} env-steps/s/card "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    del x_state, d_state, s_state
+
+    # (c) evaluate_population: SEED_PROGRAM and 7 mutations of
+    # random.Random(0) against WorkerRush and LightRush, 32 games a side:
+    # 1024 lanes, kernel next to plain for a checked prefix, then timed at
+    # the JAX default max_cycles
+    t1 = time.perf_counter()
+    import random as _random
+    rng0 = _random.Random(0)
+    progs = [DSL.SEED_PROGRAM] + [SYN.mutate(DSL.SEED_PROGRAM, rng0)
+                                  for _ in range(7)]
+    kopp = [make_bot(n, kenv) for n in SYN_OPPONENTS]
+    popp = [make_bot(n, penv) for n in SYN_OPPONENTS]
+    kout, pout = {}, {}
+    KN.reset_counts()
+    kfit = SYN.evaluate_population(kenv, progs, kopp, SYN_GAMES,
+                                   SYN_CHECK_TICKS, seed=16, out=kout)
+    syn_counts = KN.counts()
+    pfit = SYN.evaluate_population(penv, progs, popp, SYN_GAMES,
+                                   SYN_CHECK_TICKS, seed=16, out=pout)
+    torch.cuda.synchronize()
+    L = int(kout["winner"].shape[0])
+    expect_equal("evaluate_population", state_pairs(
+        kout["state"], pout["state"]) + [
+        ("winners", kout["winner"], pout["winner"]),
+        ("fitness", torch.from_numpy(kfit), torch.from_numpy(pfit))])
+    need = ("distance_fields", "descend_direction", "dsl_target", "rush")
+    if L != 1024 or min(syn_counts[n] for n in need) == 0 or syn_counts[
+            "expert_macro"]:
+        raise AssertionError(f"evaluate_population: {L} lanes, launches "
+                             f"{syn_counts}")
+    # the timed run keeps its state every SYN_SNAP_EVERY ticks (a list of
+    # references: the loop makes a new state each tick)
+    tout, snaps = {}, []
+
+    def snap(tick, st):
+        if tick % SYN_SNAP_EVERY == 0:
+            snaps.append((tick, st))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    tfit = SYN.evaluate_population(kenv, progs, kopp, SYN_GAMES, SYN_CYCLES,
+                                   seed=16, out=tout, on_tick=snap)
+    torch.cuda.synchronize()
+    syn_sec = time.perf_counter() - t2
+    syn_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lane_t = int(tout["state"].time.sum())
+    ended = int((tout["winner"] >= 0).sum())
+    print(f"    evaluate_population ({len(progs)} programs x "
+          f"{len(SYN_OPPONENTS)} opponents x 2 sides x {SYN_GAMES} = {L} "
+          f"lanes): {SYN_CHECK_TICKS} ticks identical to the plain path "
+          f"(states, winners, fitness), launches per tick "
+          f"{ {n: round(c / SYN_CHECK_TICKS, 1) for n, c in syn_counts.items() if c} }"
+          f"; timed to {SYN_CYCLES} cycles {syn_sec:.2f} s = "
+          f"{lane_t / syn_sec:.1f} lane-ticks/s/card ({lane_t} lane-ticks, "
+          f"{ended} games ended), peak {syn_peak:.2f} GiB, fitness "
+          f"{[round(float(f), 4) for f in tfit]} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+
+    lap("[16] expert, evaluate_population timed")
+    # contact windows: from the timed run's kept state with the most lanes
+    # in contact both ways, its programs and two programs that reach every
+    # DSL kernel (the two-nearest field, the range covers, Random's
+    # uniforms) go on kernel next to plain, so that the attacks, the range
+    # covers, MoveAway and the ally fields are held in contact; each
+    # program bot counts the ATTACKs it issues, and a window fails without
+    # any
+    t2 = time.perf_counter()
+    cover = (
+        (DSL.If(DSL.AllyInEnemyRange(), (DSL.MoveAway("All"),)),
+         DSL.MoveToUnit("Worker", "Closest", "Ally"),
+         DSL.Attack("All", "Random")),
+        (DSL.If(DSL.EnemyInUnitsRange(), (DSL.Attack("All", "Weakest"),)),
+         DSL.MoveToUnit("All", "Random", "Enemy"), DSL.Harvest(2),
+         DSL.Attack("All", "Closest")))
+    cl = [(pi, side) for pi in range(len(cover)) for side in (0, 1)
+          for _ in range(L // 4)]
+    dsl_k = ("distance_fields", "descend_direction", "distance_field2",
+             "descend_direction_excluding", "range_cover", "dsl_target")
+
+    def in_contact(s0, sides):
+        """Lanes where an enemy covers one of the program's units
+        (AllyInEnemyRange) and where one of its units covers an enemy
+        (EnemyInUnitsRange)."""
+        rng_ = peng.lut("attack_range", dev)[
+            (s0.utype.long() - 1).clamp(0, cfg.num_types - 1)]
+        seat = torch.as_tensor(sides, device=dev).view(-1, 1, 1)
+        mine = (s0.utype > 0) & (s0.owner == seat)
+        en = (s0.utype > 0) & (s0.owner == 1 - seat)
+        return tuple(int((m & DSL.range_cover_plain(
+            c, rng_, cfg.max_range)).flatten(1).any(1).sum())
+            for m, c in ((mine, en), (en, mine)))
+
+    snap_tick, snap_st = max(snaps, key=lambda ts: min(in_contact(
+        ts[1], tout["sides"])))
+    del snaps
+    start = (snap_st, torch.zeros(L, dtype=torch.bool, device=dev),
+             torch.full((L,), -1, dtype=torch.int32, device=dev))
+
+    def counted(bots, tally):
+        def wrap(bot):
+            def act(st, p, nz):
+                a = bot(st, p, nz)
+                tally.append((a[..., 0] == ATTACK).sum())
+                return a
+            return S.Opponent(act, bot.draw)
+        return [wrap(b) for b in bots]
+
+    def go_on(name, kbots, pbots, kopps, popps, pis, ois, sides, n):
+        tk, tp = [], []
+        gk, gp = (torch.Generator(device=dev) for _ in (0, 1))
+        gk.manual_seed(160)
+        gp.manual_seed(160)
+        KN.reset_counts()
+        kw, kst, kdn = SYN.play_lanes(kenv, counted(kbots, tk), kopps, pis,
+                                      ois, sides, n, gk, start=start)
+        c = KN.counts()
+        pw, pst, pdn = SYN.play_lanes(penv, counted(pbots, tp), popps, pis,
+                                      ois, sides, n, gp, start=start)
+        expect_equal(name, state_pairs(kst, pst) + [
+            ("winners", kw, pw), ("done", kdn, pdn),
+            ("attacks", torch.stack(tk), torch.stack(tp))])
+        attacks = int(torch.stack(tk).sum())
+        contact = in_contact(snap_st, sides)
+        if attacks == 0 or min(contact) == 0:
+            raise AssertionError(f"{name}: {attacks} program ATTACKs, lanes "
+                                 f"in contact {contact}")
+        return c, attacks, int(kdn.sum()), contact
+
+    syn_go = go_on("evaluate_population in contact", tout["bots"],
+                   [DSL.program_opponent(penv, p) for p in progs], kopp,
+                   popp, tout["pis"], tout["ois"], tout["sides"],
+                   SYN_CONTACT_TICKS)
+    cov_go = go_on("every DSL kernel in contact",
+                   [DSL.program_opponent(kenv, p) for p in cover],
+                   [DSL.program_opponent(penv, p) for p in cover], kopp[:1],
+                   popp[:1], [c[0] for c in cl], [0] * len(cl),
+                   [c[1] for c in cl], COVER_CONTACT_TICKS)
+    cover_counts = cov_go[0]
+    if min(cover_counts[n] for n in dsl_k) == 0:
+        raise AssertionError(f"DSL kernels not launched: {cover_counts}")
+    for what, ticks, (_, attacks, ended, contact) in (
+            ("the timed programs", SYN_CONTACT_TICKS, syn_go),
+            ("the programs of every DSL kernel", COVER_CONTACT_TICKS,
+             cov_go)):
+        print(f"    {what} from the timed run's tick {snap_tick} ({contact[0]}"
+              f" lanes with a program unit in enemy range, {contact[1]} with "
+              f"an enemy in its units' range): {ticks} ticks identical to the "
+              f"plain path (states, winners, done, ATTACKs a call), "
+              f"{attacks} program ATTACKs, {ended} games over by the end",
+              flush=True)
+    print(f"    (the contact windows took {time.perf_counter() - t2:.1f} s)",
+          flush=True)
+
+    # (d) the CLI on basesWorkers8x8 with small settings
+    t2 = time.perf_counter()
+    import contextlib
+    import io
+    from microrts_tpu_torch.synth import export as SX
+    from microrts_tpu_torch.synth.__main__ import main as synth_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = synth_main(["--map", "maps/8x8/basesWorkers8x8.xml",
+                         "--opponents", "WorkerRush", "LightRush",
+                         "--generations", "1", "--population", "4",
+                         "--games-per-pair", "4", "--max-cycles", "100",
+                         "--clean", "behavior"])
+    cli = buf.getvalue()
+    text = cli[cli.index("(\n"):] if "(\n" in cli else ""
+    if rc != 0 or "clean(behavior)" not in cli or not text:
+        raise AssertionError(f"synth CLI rc {rc}: {cli!r}")
+    prog_ok = text.strip() == SX.dumps(()) or bool(SX.loads(text))
+    print(f"    launches of every DSL kernel in contact "
+          f"{ {n: cover_counts[n] for n in dsl_k} }; python -m "
+          f"microrts_tpu_torch.synth (basesWorkers8x8, 1 generation of 4, "
+          f"4 games a pair, 100 cycles, --clean behavior): rc {rc} in "
+          f"{time.perf_counter() - t2:.1f} s, {cli.splitlines()[0]}; "
+          f"{cli.splitlines()[1]}; the program text loads {prog_ok}:\n"
+          f"{text}", flush=True)
+    lap("[16] contact windows, the CLI")
+    print(f"    [16] took {time.perf_counter() - t0:.1f} s (the script "
+          f"{time.perf_counter() - t_main:.1f} s so far)", flush=True)
+
+    # ---- [17] results
     kernels = []
     tree_k = ("arm_sample", "arms_to_action", "mcts_descend",
               "mcts_backprop")
@@ -3326,6 +4022,13 @@ def main() -> int:
                     else stateful_counts["BS3"][k.name]
                     if k.name == "believe_update"
                     else v3_counts[k.name] if k.name == "env_health"
+                    else xv_counts[k.name] if k.name == "expert_macro"
+                    else det_counts[k.name] if k.name == "expert_detailed"
+                    else syn_counts[k.name] if k.name in (
+                        "distance_fields", "descend_direction", "dsl_target")
+                    else cover_counts[k.name] if k.name in (
+                        "distance_field2", "descend_direction_excluding",
+                        "range_cover")
                     else mc_counts[k.name] if new else upd_counts[k.name])
         by_phase = {"5": counts[k.name], "6": roll_counts[k.name],
                     "7": upd_counts[k.name], "8": rr_counts[k.name],
@@ -3342,7 +4045,15 @@ def main() -> int:
         by_phase.update({f"14 {n} games": c[k.name]
                          for n, c in loop_counts.items()})
         by_phase.update({"15 v3 step": v3_counts[k.name],
-                         "15 v3 MonteCarlo": mc3_counts[k.name]})
+                         "15 v3 MonteCarlo": mc3_counts[k.name],
+                         "16 expert step_vs": xv_counts[k.name],
+                         "16 expert detailed": det_counts[k.name],
+                         "16 expert self-play": sp_counts[k.name],
+                         "16 evaluate_population": syn_counts[k.name],
+                         "16 evaluate_population in contact":
+                             syn_go[0][k.name],
+                         "16 every DSL kernel in contact":
+                             cover_counts[k.name]})
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
             source=k.source, replaces=k.replaces, launches=launches,

@@ -95,6 +95,19 @@ def _groups(pool_idx: torch.Tensor, n_bots: int):
     return out
 
 
+def act_grouped(env: GridnetEnv, s: State, groups, call) -> torch.Tensor:
+    """Actions int32 ``[B, H, W, 7]`` of the groups of ``_groups``:
+    ``call(k, state, lanes)`` acts for group ``k`` on its lanes' state
+    (``lanes`` None and the whole state when one group has every lane)."""
+    if len(groups) == 1 and groups[0][1] is None:
+        return call(groups[0][0], s, None)
+    out = torch.empty((s.batch, env.h, env.w, 7), dtype=torch.int32,
+                      device=s.device)
+    for k, lanes in groups:
+        out.index_copy_(0, lanes, call(k, _index_state(s, lanes), lanes))
+    return out
+
+
 def _games_fn(env: GridnetEnv, bots: Sequence, max_cycles: int,
               chunk: int = CHUNK, fixed_pair: bool = False):
     """The batched-game runner for a bot pool (tournament.py:36-128).
@@ -109,19 +122,11 @@ def _games_fn(env: GridnetEnv, bots: Sequence, max_cycles: int,
     eng = env.engine
 
     def act(s, player, groups, frame, gen, noise):
-        if len(groups) == 1 and groups[0][1] is None:
-            b, _ = groups[0]
-            nz = (noise(frame, player, b, None) if noise is not None
-                  else bots[b].draw(gen, s.batch))
-            return bots[b](s, player, nz)
-        out = torch.empty((s.batch, env.h, env.w, 7), dtype=torch.int32,
-                          device=s.device)
-        for b, lanes in groups:
+        def call(b, sb, lanes):
             nz = (noise(frame, player, b, lanes) if noise is not None
-                  else bots[b].draw(gen, lanes.numel()))
-            out.index_copy_(0, lanes, bots[b](_index_state(s, lanes),
-                                              player, nz))
-        return out
+                  else bots[b].draw(gen, sb.batch))
+            return bots[b](sb, player, nz)
+        return act_grouped(env, s, groups, call)
 
     def run(i: torch.Tensor, j: torch.Tensor,
             gen: Optional[torch.Generator] = None,

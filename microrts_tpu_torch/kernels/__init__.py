@@ -10,7 +10,10 @@ The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
 ``RUSH``, ``EVENT_JUMP``, ``EVALUATE``, ``ARM_SAMPLE``,
 ``ARMS_TO_ACTION``, ``MCTS_DESCEND``, ``MCTS_BACKPROP``, ``ENUM_NEXT``,
 ``MINIMAX_STEP``, ``ISSUE``, ``PO_STATE``, ``OBS_PO``, ``REROOT``,
-``BELIEVE``, ``ENV_HEALTH``) take CUDA tensors only: they
+``BELIEVE``, ``ENV_HEALTH``, ``DISTANCE_FIELDS``, ``DESCEND``,
+``DISTANCE_FIELD2``, ``DESCEND_EXCLUDING``, ``EXPERT_MACRO``,
+``EXPERT_DETAILED``, ``RANGE_COVER``, ``DSL_TARGET``) take CUDA tensors
+only: they
 check device, dtype, shape and contiguity, allocate the outputs, launch on
 PyTorch's current stream, raise if the launch reports a CUDA error, and
 count their launches in ``.launches``.  The callers in ``engine``,
@@ -40,7 +43,7 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 NAMES = ("actor", "decode", "issue_env", "cycle", "epilogue",
          "splice_obs", "policy_sample", "policy_logprob", "rush", "event",
          "evaluation", "arms", "tree", "enumerate", "minimax", "issue",
-         "fog", "believe")
+         "fog", "believe", "fields", "expert", "synth")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAXT = 16
@@ -65,9 +68,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library of ``<name>.cu``, keyed by a hash of that source, every
+    shared header (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256()
     for part in ((CSRC / f"{name}.cu").read_bytes(),
-                 (CSRC / "common.cuh").read_bytes(),
+                 *[p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))],
                  " ".join(NVCC_FLAGS).encode()):
         h.update(part)
     return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
@@ -252,6 +257,19 @@ class _PoSlot(ctypes.Structure):
                 ("obs", ctypes.c_void_p), ("onehot", ctypes.c_void_p)]
 
 
+class _ExpertSpec(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "iters", "worker_id", "light_id", "heavy_id", "ranged_id", "base_id",
+        "barracks_id", "noff")] + [
+        ("off_dx", ctypes.c_int * MAXOFF), ("off_dy", ctypes.c_int * MAXOFF)]
+
+
+class _TargetSpec(ctypes.Structure):
+    _fields_ = [("mode", ctypes.c_int), ("noff", ctypes.c_int),
+                ("off_dx", ctypes.c_int * MAXOFF),
+                ("off_dy", ctypes.c_int * MAXOFF)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -314,6 +332,21 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             cfg, ctypes.POINTER(_BelDims), _I, _I, st, st, _P, st,
             ctypes.POINTER(_MemP), ctypes.POINTER(_MemP),
             ctypes.POINTER(_WorldP), _P, _P]),
+        "fields": dict(
+            distance_fields=[_P, _P, _I, _I, _I, _I, _I, _P, _P],
+            descend_direction=[_P, _P, _I, _I, _I, _P, _P],
+            distance_field2=[_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+            descend_direction_excluding=[_P, _P, _P, _P, _P, _I, _I, _I, _P,
+                                         _P]),
+        "expert": dict(
+            expert_macro=[cfg, ctypes.POINTER(_ExpertSpec), st, _I, _I, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P],
+            expert_detailed=[cfg, st, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+        "synth": dict(
+            range_cover=[cfg, _P, _P, _I, _P, _P],
+            dsl_target=[cfg, ctypes.POINTER(_TargetSpec), st, _I, _I, _P, _P,
+                        _P, _P, _P]),
     }[name]
     for entry, argtypes in entries.items():
         fn = getattr(lib, f"{entry}_launch")
@@ -1360,6 +1393,215 @@ class _ObsPo(Kernel):
         return ob, oh
 
 
+def _offsets_into(spec, offsets) -> None:
+    """The attack scan's (d2, dx, dy) offsets, closest first, into a
+    spec's ``noff``/``off_dx``/``off_dy``."""
+    if len(offsets) > MAXOFF:
+        raise ValueError("attack scan: too many offsets")
+    spec.noff = len(offsets)
+    spec.off_dx[:spec.noff] = [int(dx) for _, dx, _ in offsets]
+    spec.off_dy[:spec.noff] = [int(dy) for _, _, dy in offsets]
+
+
+class _DistanceFields(Kernel):
+    def __call__(self, sources: torch.Tensor, passable: torch.Tensor,
+                 iters: int) -> torch.Tensor:
+        """F BFS fields (ops/fields.py ``distance_field``, ``iters``
+        sweeps) of bool ``sources [B, F, H, W]`` over bool ``passable [B,
+        H, W]``: int32 ``[B, F, H, W]``."""
+        if sources.dim() != 4:
+            raise ValueError("distance_fields: sources must be [B, F, H, W]")
+        B, F, H, W = sources.shape
+        dev = sources.device
+        sp = _check("sources", sources, torch.bool, (B, F, H, W), dev)
+        pp = _check("passable", passable, torch.bool, (B, H, W), dev)
+        out = torch.empty((B, F, H, W), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            self._launch(sp, pp, B, F, H, W, int(iters), out.data_ptr(),
+                         _stream(dev))
+        return out
+
+
+class _Descend(Kernel):
+    def __call__(self, dist: torch.Tensor, movable: torch.Tensor
+                 ) -> torch.Tensor:
+        """``descend_direction`` of int32 ``dist [B, H, W]`` gated by bool
+        ``movable [B, H, W, 4]``: int32 ``[B, H, W]``."""
+        if dist.dim() != 3:
+            raise ValueError("descend_direction: dist must be [B, H, W]")
+        B, H, W = dist.shape
+        dev = dist.device
+        dp = _check("dist", dist, torch.int32, (B, H, W), dev)
+        mp = _check("movable", movable, torch.bool, (B, H, W, 4), dev)
+        out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            self._launch(dp, mp, B, H, W, out.data_ptr(), _stream(dev))
+        return out
+
+
+class _DistanceField2(Kernel):
+    def __call__(self, sources: torch.Tensor, passable: torch.Tensor,
+                 iters: int):
+        """``distance_field2`` of bool ``sources``/``passable [B, H, W]``:
+        (d1, i1, d2, i2), int32 ``[B, H, W]`` each."""
+        if sources.dim() != 3:
+            raise ValueError("distance_field2: sources must be [B, H, W]")
+        B, H, W = sources.shape
+        dev = sources.device
+        sp = _check("sources", sources, torch.bool, (B, H, W), dev)
+        pp = _check("passable", passable, torch.bool, (B, H, W), dev)
+        out = tuple(torch.empty((B, H, W), dtype=torch.int32, device=dev)
+                    for _ in range(4))
+        with torch.cuda.device(dev):
+            self._launch(sp, pp, B, H, W, int(iters),
+                         *[o.data_ptr() for o in out], _stream(dev))
+        return out
+
+
+class _DescendExcluding(Kernel):
+    def __call__(self, st, movable: torch.Tensor, self_id: torch.Tensor
+                 ) -> torch.Tensor:
+        """``descend_direction_excluding`` of ``st`` (``distance_field2``'s
+        four int32 planes; d1, i1 and d2 read) gated by bool ``movable
+        [B, H, W, 4]``, excluding int32 ``self_id [B, H, W]``."""
+        d1, i1, d2 = st[0], st[1], st[2]
+        if d1.dim() != 3:
+            raise ValueError("descend_direction_excluding: planes must be "
+                             "[B, H, W]")
+        B, H, W = d1.shape
+        dev = d1.device
+        ptrs = [_check(n, t, torch.int32, (B, H, W), dev)
+                for n, t in (("d1", d1), ("i1", i1), ("d2", d2))]
+        mp = _check("movable", movable, torch.bool, (B, H, W, 4), dev)
+        ip = _check("self_id", self_id, torch.int32, (B, H, W), dev)
+        out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            self._launch(*ptrs, mp, ip, B, H, W, out.data_ptr(),
+                         _stream(dev))
+        return out
+
+
+_EXPERT_TABLE = 1024
+_ROLE_DTYPES = dict(harvester=torch.bool, has_target=torch.bool,
+                    tgt_x=torch.int32, tgt_y=torch.int32)
+
+
+class _ExpertMacro(Kernel):
+    def __call__(self, env_cfg, state: State, roles, player, macro,
+                 noise, offsets):
+        """``ExpertEnv.macro_to_gridnet`` for ``player`` (an int or int32
+        ``[B]``): ``roles`` an ``env.expert.ExpertRoles`` (``[B, 1024]``
+        tables), ``macro`` int32 ``[B]``, ``noise`` an ``ExpertNoise``
+        (float32 ``r [B, H, W]``, int32 ``rx``/``ry [B]``), ``offsets``
+        the attack scan's (d2, dx, dy).  Returns (int32 ``[B, H, W, 7]``
+        actions, the four new role tables as a dict)."""
+        cfg = env_cfg.engine
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W = cfg.height, cfg.width
+        if noise is None:
+            raise ValueError("expert_macro: noise (ExpertNoise) missing")
+        rin = [_check(f, getattr(roles, f), dt, (B, _EXPERT_TABLE), dev)
+               for f, dt in _ROLE_DTYPES.items()]
+        mp = _check("macro", macro, torch.int32, (B,), dev)
+        rp = _check("r", noise.r, torch.float32, (B, H, W), dev)
+        xp = _check("rx", noise.rx, torch.int32, (B,), dev)
+        yp = _check("ry", noise.ry, torch.int32, (B,), dev)
+        spec = _ExpertSpec(iters=H + W, worker_id=env_cfg.worker_id,
+                           light_id=env_cfg.light_id,
+                           heavy_id=env_cfg.heavy_id,
+                           ranged_id=env_cfg.ranged_id,
+                           base_id=env_cfg.base_id,
+                           barracks_id=env_cfg.barracks_id)
+        _offsets_into(spec, offsets)
+        out = {f: torch.empty((B, _EXPERT_TABLE), dtype=dt, device=dev)
+               for f, dt in _ROLE_DTYPES.items()}
+        act = torch.empty((B, H, W, 7), dtype=torch.int32, device=dev)
+        me, players = _player(player, B, dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(spec),
+                         ctypes.byref(sp), B, me, players, mp, rp, xp, yp,
+                         *rin, *[o.data_ptr() for o in out.values()],
+                         act.data_ptr(), _stream(dev))
+        return act, out
+
+
+class _ExpertDetailed(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State, player,
+                 type_logits: torch.Tensor, tile_logits: torch.Tensor,
+                 noise) -> torch.Tensor:
+        """``detailed_to_gridnet`` for ``player`` (an int or int32 ``[B]``):
+        float32 ``type_logits [B, T]`` and ``tile_logits [B, H, W]``,
+        ``noise`` a ``DetailedNoise`` (``g_tile [B, H, W, H*W]``,
+        ``g_type [B, H, W, T]``).  Returns int32 ``[B, H, W, 7]``."""
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W, T = cfg.height, cfg.width, cfg.num_types
+        if noise is None:
+            raise ValueError("expert_detailed: noise (DetailedNoise) missing")
+        ptrs = [_check("type_logits", type_logits, torch.float32, (B, T), dev),
+                _check("tile_logits", tile_logits, torch.float32, (B, H, W),
+                       dev),
+                _check("g_tile", noise.g_tile, torch.float32,
+                       (B, H, W, H * W), dev),
+                _check("g_type", noise.g_type, torch.float32, (B, H, W, T),
+                       dev)]
+        act = torch.empty((B, H, W, 7), dtype=torch.int32, device=dev)
+        me, players = _player(player, B, dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(sp), B, me,
+                         players, *ptrs, act.data_ptr(), _stream(dev))
+        return act
+
+
+class _RangeCover(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State,
+                 src: torch.Tensor) -> torch.Tensor:
+        """The DSL's ``_range_cover`` of bool ``src [B, H, W]`` (each
+        source cell's attack range from ``state.utype``): bool ``[B, H,
+        W]``."""
+        B = state.utype.shape[0]
+        dev = state.utype.device
+        H, W = cfg.height, cfg.width
+        up = _check("utype", state.utype, torch.int8, (B, H, W), dev)
+        sp = _check("src", src, torch.bool, (B, H, W), dev)
+        out = torch.empty((B, H, W), dtype=torch.bool, device=dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), up, sp, B, out.data_ptr(),
+                         _stream(dev))
+        return out
+
+
+class _DslTarget(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State, player, mode: int,
+                 u: Optional[torch.Tensor], offsets):
+        """The DSL's ``nearest_in_range_target`` under policy ``mode``
+        (``synth.dsl.TARGET_MODES``) for ``player`` (an int or int32
+        ``[B]``); Random (mode 5) reads float32 ``u [B, D*D, H, W]``.
+        Returns (int32 window index ``[B, H, W]``, bool found)."""
+        sp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W = cfg.height, cfg.width
+        D = 2 * cfg.max_range + 1
+        if not 0 <= int(mode) <= 5:
+            raise ValueError(f"dsl_target: unknown mode {mode}")
+        spec = _TargetSpec(mode=int(mode))
+        _offsets_into(spec, offsets)
+        upt = None
+        if int(mode) == 5:
+            if u is None:
+                raise ValueError("dsl_target: the Random policy needs u")
+            upt = _check("u", u, torch.float32, (B, D * D, H, W), dev)
+        rel = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+        found = torch.empty((B, H, W), dtype=torch.bool, device=dev)
+        me, players = _player(player, B, dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(spec),
+                         ctypes.byref(sp), B, me, players, upt,
+                         rel.data_ptr(), found.data_ptr(), _stream(dev))
+        return rel, found
+
+
 # ``replaces``: the JAX function each kernel stands for (file:line)
 ACTOR = _Actor("actor", "microrts_tpu/engine/kernel.py:742")  # + scripted.py:69
 DECODE = _Decode("decode", "microrts_tpu/env/gridnet.py:139")
@@ -1416,11 +1658,33 @@ REROOT = _MctsReroot("mcts_reroot", "microrts_tpu/bots/treesearch.py:507",
 # (init), :325 (sample_world)
 BELIEVE = _Believe("believe_update", "microrts_tpu/bots/believestate.py:215",
                    "believe")
+# the standalone BFS fields (K9 rest)
+DISTANCE_FIELDS = _DistanceFields("distance_fields",
+                                  "microrts_tpu/ops/fields.py:23", "fields")
+DESCEND = _Descend("descend_direction", "microrts_tpu/ops/fields.py:126",
+                   "fields")
+DISTANCE_FIELD2 = _DistanceField2("distance_field2",
+                                  "microrts_tpu/ops/fields.py:42", "fields")
+DESCEND_EXCLUDING = _DescendExcluding("descend_direction_excluding",
+                                      "microrts_tpu/ops/fields.py:104",
+                                      "fields")
+# expert.py:107-270 (its BFS fields inside), :292 (_put)
+EXPERT_MACRO = _ExpertMacro("expert_macro", "microrts_tpu/env/expert.py:107",
+                            "expert")
+EXPERT_DETAILED = _ExpertDetailed("expert_detailed",
+                                  "microrts_tpu/env/expert.py:304", "expert")
+RANGE_COVER = _RangeCover("range_cover", "microrts_tpu/synth/dsl.py:319",
+                          "synth")
+# + dsl.py:410-420 (the seven target policies)
+DSL_TARGET = _DslTarget("dsl_target", "microrts_tpu/synth/dsl.py:382",
+                        "synth")
 KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE,
            LOGPROB, LOGPROB_BWD, RUSH, EVENT_JUMP, EVALUATE, ARM_SAMPLE,
            ARMS_TO_ACTION, MCTS_DESCEND, MCTS_BACKPROP, ENUM_NEXT,
            MINIMAX_STEP, ISSUE, PO_STATE, OBS_PO, REROOT, BELIEVE,
-           ENV_HEALTH)
+           ENV_HEALTH, DISTANCE_FIELDS, DESCEND, DISTANCE_FIELD2,
+           DESCEND_EXCLUDING, EXPERT_MACRO, EXPERT_DETAILED, RANGE_COVER,
+           DSL_TARGET)
 
 
 def reset_counts() -> None:

@@ -9,11 +9,8 @@
 //
 // Per env: the distance fields to the enemy units, the resources and the
 // own bases (and, with ``expand``, to the resources far from the own
-// bases) are ``iters`` = H+W synchronous 4-neighbour min-plus sweeps, as
-// distance_field computes them (not a converged BFS: beyond H+W steps a
-// cell stays INF); each sweep reads the previous sweep's field (double
-// buffers in shared memory), off-board neighbours read INF-1, non-source
-// cells that cannot be walked are pinned to INF and sources to 0.  Then
+// bases) are ``iters`` = H+W synchronous sweeps of fields.cuh's device
+// BFS (distance_field's semantics, not a converged BFS).  Then
 // each cell takes its decisions in rush_bot's order, each later one
 // overwriting the columns it sets: train workers, train the combat type,
 // rebuild the base, return / walk home / harvest / walk to a resource,
@@ -24,14 +21,14 @@
 //
 // Bound at B=1024, 16x16: it reads six state planes (10 B per cell) and
 // writes the int32 [B, H, W, 7] actions (28 B per cell): 9.7 MB, 2.9 us
-// at 3.35 TB/s; the sweeps are 3 fields x 32 sweeps x ~13 integer
-// operations per cell, ~330 M operations: about 4.9 us at the card's 67 T
-// scalar operations/s, so it is bound by operations.
+// at 3.35 TB/s; the sweeps are 3 fields x 32 sweeps x 7 int32
+// operations per cell, ~176 M operations: about 10.5 us at the card's
+// 16.7 T int32 operations/s, so it is bound by operations.
 //
 // Design: one block per env, one thread per cell up to 1024 cells (more
 // cells per thread on larger maps); the fields, the per-cell flags and
 // the worker ids live in shared memory (dynamic, above 48 KB on 64x64).
-#include "common.cuh"
+#include "fields.cuh"
 
 #define MAXOFF 64
 #define MAXLAD 3
@@ -60,80 +57,6 @@ enum {
   F_MINE = 1, F_IDLE = 2, F_ENEMY = 4, F_RES = 8, F_BASE = 16, F_BARR = 32,
   F_PASS = 64, F_WORKER = 128, F_FAR = 256
 };
-
-// Flag ``f`` of the neighbour of cell (x, y) in direction d (off-board:
-// false).
-__device__ __forceinline__ bool nb_flag(const uint16_t* fl, int H, int W,
-                                        int x, int y, int d, int f) {
-  const int nx = x + dir_dx(d), ny = y + dir_dy(d);
-  if (nx < 0 || nx >= W || ny < 0 || ny >= H) return false;
-  return (fl[ny * W + nx] & f) != 0;
-}
-
-__device__ __forceinline__ int nb_dist(const int* dist, int H, int W, int x,
-                                       int y, int d, int fill) {
-  const int nx = x + dir_dx(d), ny = y + dir_dy(d);
-  if (nx < 0 || nx >= W || ny < 0 || ny >= H) return fill;
-  return dist[ny * W + nx];
-}
-
-// ``iters`` synchronous sweeps of the fields whose sources are the cells
-// with any flag of ``src[f]``, for ``nf`` fields at once.  The result is
-// in cur[f] on return.
-__device__ void distance_fields(int nf, const int* srcf, int** cur,
-                                int** nxt, const uint16_t* fl, int H, int W,
-                                int iters) {
-  const int HW = H * W;
-  for (int c = threadIdx.x; c < HW; c += blockDim.x)
-    for (int f = 0; f < nf; ++f) cur[f][c] = (fl[c] & srcf[f]) ? 0 : INF_I;
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    for (int c = threadIdx.x; c < HW; c += blockDim.x) {
-      const int x = c % W, y = c / W;
-      const bool pass = fl[c] & F_PASS;
-      for (int f = 0; f < nf; ++f) {
-        int v;
-        if (fl[c] & srcf[f]) {
-          v = 0;
-        } else if (!pass) {
-          v = INF_I;
-        } else {
-          v = cur[f][c];
-          for (int d = 0; d < 4; ++d)
-            v = min(v, nb_dist(cur[f], H, W, x, y, d, INF_I - 1) + 1);
-        }
-        nxt[f][c] = v;
-      }
-    }
-    __syncthreads();
-    for (int f = 0; f < nf; ++f) {
-      int* t = cur[f];
-      cur[f] = nxt[f];
-      nxt[f] = t;
-    }
-  }
-}
-
-// descend_direction: the strictly-smaller neighbour in tie order
-// down, left, up, right among the free neighbours; -1 if none.
-__device__ __forceinline__ int descend(const int* dist, unsigned free_b,
-                                       int H, int W, int x, int y) {
-  const int order[4] = {2, 3, 0, 1};
-  int best_d = -1, best_v = dist[y * W + x];
-  for (int i = 0; i < 4; ++i) {
-    const int k = order[i];
-    const int v = nb_dist(dist, H, W, x, y, k, INF_I);
-    if (((free_b >> k) & 1) && v < best_v) {
-      best_d = k;
-      best_v = v;
-    }
-  }
-  return best_d;
-}
-
-__device__ __forceinline__ int first_bit(unsigned b) {
-  return b ? __ffs(b) - 1 : 0;
-}
 
 __global__ void rush_kernel(Cfg cfg, RushSpec sp, StateP s, int me,
                             int32_t* act) {
@@ -179,8 +102,8 @@ __global__ void rush_kernel(Cfg cfg, RushSpec sp, StateP s, int me,
   // d_enemy, d_res, d_base
   int* cur[3] = {buf[0], buf[2], buf[4]};
   int* nxt[3] = {buf[1], buf[3], buf[5]};
-  const int srcf[3] = {F_ENEMY, F_RES, F_BASE};
-  distance_fields(3, srcf, cur, nxt, fl, H, W, sp.iters);
+  const uint16_t srcf[3] = {F_ENEMY, F_RES, F_BASE};
+  distance_fields<uint16_t>(3, srcf, cur, nxt, fl, F_PASS, H, W, sp.iters);
   const int* d_enemy = cur[0];
   const int* d_res = cur[1];
   const int* d_base = cur[2];
@@ -194,8 +117,8 @@ __global__ void rush_kernel(Cfg cfg, RushSpec sp, StateP s, int me,
     __syncthreads();
     int* fc[1] = {buf[6]};
     int* fn[1] = {buf[7]};
-    const int ff[1] = {F_FAR};
-    distance_fields(1, ff, fc, fn, fl, H, W, sp.iters);
+    const uint16_t ff[1] = {F_FAR};
+    distance_fields<uint16_t>(1, ff, fc, fn, fl, F_PASS, H, W, sp.iters);
     d_far = fc[0];
   }
 
@@ -229,10 +152,10 @@ __global__ void rush_kernel(Cfg cfg, RushSpec sp, StateP s, int me,
     const bool worker = f & F_WORKER;
     unsigned free_b = 0, res_b = 0, base_b = 0, far_b = 0;
     for (int d = 0; d < 4; ++d) {
-      free_b |= (unsigned)nb_flag(fl, H, W, x, y, d, F_PASS) << d;
-      res_b |= (unsigned)nb_flag(fl, H, W, x, y, d, F_RES) << d;
-      base_b |= (unsigned)nb_flag(fl, H, W, x, y, d, F_BASE) << d;
-      far_b |= (unsigned)nb_flag(fl, H, W, x, y, d, F_FAR) << d;
+      free_b |= (unsigned)nb_has(fl, H, W, x, y, d, F_PASS) << d;
+      res_b |= (unsigned)nb_has(fl, H, W, x, y, d, F_RES) << d;
+      base_b |= (unsigned)nb_has(fl, H, W, x, y, d, F_BASE) << d;
+      far_b |= (unsigned)nb_has(fl, H, W, x, y, d, F_FAR) << d;
     }
     const int tdir = first_bit(free_b);
     int rank = 0;

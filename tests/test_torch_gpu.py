@@ -83,7 +83,10 @@ def test_kernel_path_equals_plain_on_card(map_rel):
         policy_logprob_fwd=0, policy_logprob_bwd=0, rush=0, event_jump=0,
         evaluate=0, arm_sample=0, arms_to_action=0, mcts_descend=0,
         mcts_backprop=0, enum_next=0, minimax_step=0, issue=0, po_state=0,
-        obs_po=0, mcts_reroot=0, believe_update=0, env_health=0)
+        obs_po=0, mcts_reroot=0, believe_update=0, env_health=0,
+        distance_fields=0, descend_direction=0, distance_field2=0,
+        descend_direction_excluding=0, expert_macro=0, expert_detailed=0,
+        range_cover=0, dsl_target=0)
 
 
 def _states(env, B, ticks, seed):
@@ -409,7 +412,10 @@ def test_update_kernel_path_matches_plain_on_card():
                       "arms_to_action", "mcts_descend", "mcts_backprop",
                       "enum_next", "minimax_step", "issue", "po_state",
                       "obs_po", "mcts_reroot", "believe_update",
-                      "env_health")
+                      "env_health", "distance_fields", "descend_direction",
+                      "distance_field2", "descend_direction_excluding",
+                      "expert_macro", "expert_detailed", "range_cover",
+                      "dsl_target")
             assert all(v > 0 for n, v in counts.items()
                        if n not in search), counts
             assert not any(counts[n] for n in search), counts
@@ -1389,3 +1395,239 @@ def test_slice9_kernels_reject_bad_input_on_card():
         KN.ENV_HEALTH(e2.cfg.engine, s2, torch.zeros(4, device=dev))
     with pytest.raises(ValueError):
         KN.ENV_HEALTH(e2.cfg.engine, s2, torch.zeros((4, 2)))
+
+
+# ----------------------------------------------------------------------
+# slice 10: the standalone BFS fields (K9 rest), the expert interface and
+# the DSL's stencils
+
+def _rush_states(env, B, ticks, seed):
+    """Kernel-path WorkerRush-vs-LightRush states (RandomBiasedAI for
+    player 0's first 20 ticks), every 20th tick."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bot = random_bot(env, BIAS)
+    wr, lr = make_bot("WorkerRush", env), make_bot("LightRush", env)
+    s = env.reset(B)
+    out = []
+    for t in range(ticks):
+        u = torch.rand((B, env.h, env.w, 2), generator=g, device="cuda")
+        s, _, _ = env.step(s, bot(s, 0, u) if t < 20 else wr(s, 0),
+                           lr(s, 1))
+        if t % 20 == 19:
+            out.append(s)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_field_kernels_equal_plain_on_card(map_rel):
+    """DISTANCE_FIELDS, DESCEND, DISTANCE_FIELD2 and DESCEND_EXCLUDING
+    against the plain versions on random planes (B=64, F=3, H+W sweeps)
+    and on a serpentine maze whose far end lies beyond H+W."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.ops import fields as FL
+    env = GridnetEnv(asset_path(map_rel), device="cuda")
+    H, W = env.h, env.w
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    B = 64
+    src = torch.rand((B, 3, H, W), generator=g, device="cuda") < 0.05
+    pas = torch.rand((B, H, W), generator=g, device="cuda") < 0.7
+    pas[0] = True
+    for row in range(1, H - 1, 2):      # the maze in env 0
+        pas[0, row] = False
+        pas[0, row, (W - 1) * ((row // 2) % 2 == 0)] = True
+    src[0] = False
+    src[0, :, 0, 0] = True
+    mov = torch.rand((B, H, W, 4), generator=g, device="cuda") < 0.8
+    d = KN.DISTANCE_FIELDS(src, pas, H + W)
+    assert torch.equal(d, FL.distance_fields_plain(src, pas, H + W))
+    # the corridor's cell H + W steps away is reached, the ones beyond not
+    assert (d[0, 0] == H + W).any() and ((d[0, 0] == (1 << 30))
+                                         & pas[0]).any()
+    d0 = d[:, 0].contiguous()
+    assert torch.equal(KN.DESCEND(d0, mov),
+                       FL.descend_direction_plain(d0, mov))
+    s0 = src[:, 0].contiguous()
+    st = KN.DISTANCE_FIELD2(s0, pas, H + W)
+    for a, b in zip(st, FL.distance_field2_plain(s0, pas, H + W)):
+        assert torch.equal(a, b)
+    sid = torch.randint(-1, H * W, (B, H, W), generator=g, device="cuda",
+                        dtype=torch.int32)
+    assert torch.equal(KN.DESCEND_EXCLUDING(st, mov, sid),
+                       FL.descend_direction_excluding_plain(st, mov, sid))
+
+
+@pytest.mark.gpu
+def test_expert_kernels_equal_plain_on_card():
+    """EXPERT_MACRO for every macro and both players (random role tables)
+    and EXPERT_DETAILED (seeded logits) against the plain versions on
+    rush states of basesWorkers16x16; then 40 ticks of ExpertEnv.step_vs
+    against WorkerRush kernel vs plain, states and roles equal."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.env.expert import (DetailedNoise, ExpertEnv,
+                                               ExpertNoise, ExpertRoles,
+                                               NUM_MACROS,
+                                               detailed_to_gridnet)
+    dev = torch.device("cuda")
+    B = 64
+    kenv = GridnetEnv(asset_path(MAPS[1]), device=dev)
+    penv = GridnetEnv(asset_path(MAPS[1]), device=dev, plain=True)
+    kex, pex = ExpertEnv(kenv), ExpertEnv(penv)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    T = kenv.cfg.engine.num_types
+    for s in _rush_states(kenv, B, 120, 5):
+        for p in (0, 1):
+            roles = ExpertRoles(
+                torch.rand((B, 1024), generator=g, device=dev) < 0.5,
+                torch.rand((B, 1024), generator=g, device=dev) < 0.5,
+                torch.randint(0, 16, (B, 1024), generator=g, device=dev,
+                              dtype=torch.int32),
+                torch.randint(0, 16, (B, 1024), generator=g, device=dev,
+                              dtype=torch.int32))
+            for m in range(NUM_MACROS):
+                nz = ExpertNoise.draw(g, B, kenv)
+                mac = torch.full((B,), m, dtype=torch.int32, device=dev)
+                ka, kr = kex.macro_to_gridnet(s, roles, p, mac, nz)
+                pa, pr = pex.macro_to_gridnet(s, roles, p, mac, nz)
+                assert torch.equal(ka, pa), (m, p)
+                for f in ExpertRoles.FIELDS:
+                    assert torch.equal(getattr(kr, f), getattr(pr, f)), f
+            tl = torch.randn((B, T), generator=g, device=dev)
+            ml = torch.randn((B, 16, 16), generator=g, device=dev)
+            dn = DetailedNoise.draw(g, B, kenv)
+            assert torch.equal(detailed_to_gridnet(kex, s, p, tl, ml, dn),
+                               detailed_to_gridnet(pex, s, p, tl, ml, dn))
+    ks = kenv.reset(B)
+    ps = ks.clone()
+    kr, pr = ExpertRoles.init(B, dev), ExpertRoles.init(B, dev)
+    kw, pw = make_bot("WorkerRush", kenv), make_bot("WorkerRush", penv)
+    KN.reset_counts()
+    for t in range(40):
+        mac = torch.multinomial(kex.action_mask(ks, kr, 0).float(), 1,
+                                generator=g)[:, 0].int()
+        nz = ExpertNoise.draw(g, B, kenv)
+        ks, kr, krw, kd = kex.step_vs(ks, kr, mac, kw, nz)
+        ps, pr, prw, pd = pex.step_vs(ps, pr, mac, pw, nz)
+        assert ks.equal(ps) == (True, ""), t
+        for f in ExpertRoles.FIELDS:
+            assert torch.equal(getattr(kr, f), getattr(pr, f)), (t, f)
+        assert torch.equal(krw, prw) and torch.equal(kd, pd), t
+    c = KN.counts()
+    assert c["expert_macro"] == 40 and c["rush"] == 40, c
+    assert c["distance_fields"] == 0 and c["expert_detailed"] == 0, c
+
+
+@pytest.mark.gpu
+def test_dsl_kernels_and_programs_equal_plain_on_card():
+    """RANGE_COVER and DSL_TARGET (all six modes) against their plain
+    versions on rush states of basesWorkers16x16, both players; then
+    SEED_PROGRAM, a program of every MoveToUnit target and both sides
+    and 8 random programs compiled on the kernel env against the plain
+    env, with their DslNoise."""
+    _need_card()
+    import random
+
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.env.expert import scan_offsets
+    from microrts_tpu_torch.synth import dsl as DS
+    from microrts_tpu_torch.synth.search import TARGETS, random_program
+    dev = torch.device("cuda")
+    B = 64
+    kenv = GridnetEnv(asset_path(MAPS[1]), device=dev)
+    penv = GridnetEnv(asset_path(MAPS[1]), device=dev, plain=True)
+    cfg = kenv.cfg.engine
+    R = cfg.max_range
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    states = _rush_states(kenv, B, 120, 9)
+    for s in states:
+        t = (s.utype.long() - 1).clamp(0, cfg.num_types - 1)
+        rng = penv.engine.lut("attack_range", dev)[t]
+        dmg = penv.engine.lut("max_damage", dev)[t]
+        u = torch.rand((B, (2 * R + 1) ** 2, 16, 16), generator=g,
+                       device=dev)
+        for p in (0, 1):
+            mine = (s.utype > 0) & (s.owner == p)
+            enemy = (s.utype > 0) & (s.owner >= 0) & (s.owner != p)
+            assert torch.equal(KN.RANGE_COVER(cfg, s, mine),
+                               DS.range_cover_plain(mine, rng, R))
+            for mode in range(6):
+                for a, b in zip(
+                        KN.DSL_TARGET(cfg, s, p, mode, u, scan_offsets(R)),
+                        DS.dsl_target_plain(mode, enemy, s.hp, dmg, rng, R,
+                                            u)):
+                    assert torch.equal(a, b), mode
+    progs = [DS.SEED_PROGRAM, tuple(
+        DS.MoveToUnit("All", t, side) for t in TARGETS
+        for side in ("Ally", "Enemy"))]
+    progs += [random_program(random.Random(i)) for i in range(8)]
+    players = (torch.arange(B, device=dev) % 2).int()
+    for prog in progs:
+        kb = DS.program_opponent(kenv, prog)
+        pb = DS.compile_program(penv, prog)
+        for s in states:
+            for p in (0, 1, players):
+                nz = kb.draw(g, B)
+                assert torch.equal(kb(s, p, nz), pb(s, p, nz)), prog
+
+
+@pytest.mark.gpu
+def test_slice10_kernels_reject_bad_input_on_card():
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.env.expert import (DetailedNoise, ExpertEnv,
+                                               ExpertNoise, ExpertRoles,
+                                               detailed_to_gridnet,
+                                               scan_offsets)
+    from microrts_tpu_torch.synth import dsl as DS
+    env = GridnetEnv(asset_path("maps/8x8/basesWorkers8x8.xml"),
+                     device="cuda")
+    cfg = env.cfg.engine
+    s = env.reset(4)
+    src = torch.zeros((4, 2, 8, 8), dtype=torch.bool, device="cuda")
+    pas = torch.ones((4, 8, 8), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        KN.DISTANCE_FIELDS(src.cpu(), pas.cpu(), 16)
+    with pytest.raises(TypeError):
+        KN.DISTANCE_FIELDS(src.int(), pas, 16)
+    with pytest.raises(ValueError):
+        KN.DISTANCE_FIELDS(src, pas[:2], 16)
+    with pytest.raises(TypeError):
+        KN.DESCEND(torch.zeros((4, 8, 8), device="cuda"),
+                   torch.ones((4, 8, 8, 4), dtype=torch.bool, device="cuda"))
+    with pytest.raises(ValueError):
+        KN.DISTANCE_FIELD2(src[:, 0], pas, 16)        # not contiguous
+    ex = ExpertEnv(env)
+    roles = ExpertRoles.init(4, "cuda")
+    g = torch.Generator(device="cuda")
+    nz = ExpertNoise.draw(g, 4, env)
+    with pytest.raises(ValueError):
+        ex.macro_to_gridnet(s, roles, 0, 1, None)
+    with pytest.raises(ValueError):
+        ex.macro_to_gridnet(s, ExpertRoles(*[getattr(roles, f)[:, :512]
+                                             for f in ExpertRoles.FIELDS]),
+                            0, 1, nz)
+    with pytest.raises(TypeError):
+        ex.macro_to_gridnet(s, roles, 0, 1, nz._replace(rx=nz.rx.long()))
+    T = cfg.num_types
+    dn = DetailedNoise.draw(g, 4, env)
+    with pytest.raises(ValueError):
+        detailed_to_gridnet(ex, s, 0, torch.zeros(T), torch.zeros(8, 8), None)
+    with pytest.raises(ValueError):
+        KN.EXPERT_DETAILED(cfg, s, 0, torch.zeros((4, T), device="cuda"),
+                           torch.zeros((4, 8, 8), device="cuda"),
+                           dn._replace(g_tile=dn.g_tile[..., :32]))
+    with pytest.raises(ValueError):
+        KN.DSL_TARGET(cfg, s, 0, 5, None, scan_offsets(cfg.max_range))
+    with pytest.raises(ValueError):
+        KN.DSL_TARGET(cfg, s, 0, 6, None, scan_offsets(cfg.max_range))
+    with pytest.raises(TypeError):
+        KN.RANGE_COVER(cfg, s, pas.int())
+    bot = DS.compile_program(env, (DS.Attack("All", "Random"),))
+    with pytest.raises(ValueError):
+        bot(s, 0, None)

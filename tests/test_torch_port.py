@@ -41,6 +41,10 @@ def test_import_loads_no_jax():
             "import microrts_tpu_torch.bots.minimax\n"
             "import microrts_tpu_torch.engine.fog, microrts_tpu_torch.env.pool\n"
             "import microrts_tpu_torch.bots.believestate\n"
+            "import microrts_tpu_torch.bots.treesearch\n"
+            "import microrts_tpu_torch.env.expert, microrts_tpu_torch.synth.dsl\n"
+            "import microrts_tpu_torch.synth.search, microrts_tpu_torch.synth.clean\n"
+            "import microrts_tpu_torch.synth.export\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'microrts_tpu')]\n"
             "print(bad)\n"
