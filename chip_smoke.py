@@ -7,7 +7,7 @@ Drives ``microrts_tpu_torch`` (never JAX) on basesWorkers16x16 at 1024
 envs:
 
 1. device: the card's name, count, power limit;
-2. build: compiles the thirty-two CUDA kernels (twenty-one sources) from
+2. build: compiles the thirty-five CUDA kernels (twenty-three sources) from
    ``microrts_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel; ``-Xptxas -v`` report printed);
 3. realistic states: runs RandomBiasedAI (bias 5, both players) on the
@@ -92,10 +92,18 @@ envs:
    ``expert_macro`` for every macro 0-12 and both players on every 3rd
    rush record with role tables carried along the records by a plain run,
    and
-   ``expert_detailed`` on seeded logits, exact; each kernel and its plain
-   version are timed with CUDA events (200 calls of the kernel, 4 of the
-   plain version; ``mcts_reroot`` in [14]; ``cycle`` under v3
-   and the eight-reward ``epilogue`` beside their v2 figures);
+   ``expert_detailed`` on seeded logits, exact; slice 11 on every 2nd
+   rush record, both players and a per-lane player vector:
+   ``aim_predict`` (K14a, the shipped AIM-WR model) in its four modes
+   (logits, prior, sample, greedy), ``nb_predict`` (K14b, a model of
+   seeded counts) in its three, ``cooperative_act`` (K14c) on the nets of
+   seeded genomes whose units act, and ``arm_sample``'s informed mode on
+   random visit tables with the model's prior, exact; each kernel and its
+   plain version are timed with CUDA events (200 calls of the kernel, 4
+   of the plain version; ``mcts_reroot`` in [14]; ``cycle`` under v3 and
+   the eight-reward ``epilogue`` beside their v2 figures, the other modes
+   of ``aim_predict``, ``nb_predict`` and ``arm_sample`` beside their
+   main path's);
 5. slice 1's main path: ``VecGridnetEnv`` + ``random_bot`` through the
    kernels next to the plain path, same start and uniforms, 32 ticks
    with auto-resets; state, obs, rewards and dones equal at every tick;
@@ -178,7 +186,8 @@ envs:
    equal; the deepest stack row used printed), then one decision of the
    64 games at the JAX defaults (``make_bot``) of each of the four, timed:
    game-decisions/s/card, launches by kernel, peak memory, and the
-   device's busy share of a profiled decision (ABCD's at a budget of 64);
+   device's busy share of a profiled decision (ABCD's and RTMinimax's at
+   a budget of 64);
 13. the PO main path: ``VecGridnetEnv(GridnetEnv(partial_obs=True))`` +
    ``random_bot`` through the kernels next to the plain path, same start
    (the end of [3]'s PO run) and uniforms, 32 ticks with auto-resets;
@@ -202,14 +211,15 @@ envs:
    on the 64 timed games of [11], a
    warm BS3_NaiveMCTS decision at the JAX defaults (``make_bot``),
    followed by a NaiveMCTS decision on the same games and noise, timed
-   (and their ratio), with BS3's launches, peak memory and
-   a profiled decision's busy share; ContinuingNaiveMCTS at the JAX
+   (and their ratio), with BS3's launches, peak memory and the busy
+   share of a profiled decision of 16 iterations; ContinuingNaiveMCTS at
+   the JAX
    defaults against WorkerRush for 2 consecutive decisions (the first on
    fresh trees), each timed with its launches, the re-root hit share and
    the nodes carried, the peak memory, then ``mcts_reroot`` of the last
    trees kernel vs plain (whole trees, row N included; some game keeps
-   more than 16 rows), each timed on copies, and a profiled decision's
-   busy share; and
+   more than 16 rows), each timed on copies, and the busy share of a
+   profiled decision of 16 iterations; and
    ``play_matches_stateful`` of BS3 (the [11] games' budget) against
    POWorkerRush and of ContinuingNaiveMCTS against WorkerRush, 16 games
    to 2 cycles, kernel vs plain (winners and final states equal);
@@ -252,16 +262,35 @@ envs:
    contact both ways; ``python -m microrts_tpu_torch.synth`` through
    ``main`` on basesWorkers8x8 with small settings and ``--clean
    behavior``, its program text printed;
-17. one JSON line of every kernel (launches: phase 7's for the training
+17. slice 11, the learned models at full width: the four new kernels
+   held against their plain versions on [16]'s kept in-contact state
+   (1024 lanes); one InformedNaiveMCTS decision of the 64 timed games at
+   the defaults' tree shapes with short playouts (3 of 4 ticks), kernel
+   next to plain (whole trees and actions), then a warm one at the JAX
+   defaults (``make_bot``: 64 playouts of 100 ticks, the AIM-WR prior and
+   model playouts), timed: s/decision, launches, peak memory; a
+   ``round_robin`` of UnitActionProbabilityDistributionAI, CooperativeAI
+   (seed 1's genomes, whose units act), WorkerRush and RandomBiasedAI (12
+   ordered pairs x 32 games) kernel next to plain to 12 cycles (tables,
+   winners, states; CooperativeAI must issue actions), then timed to 1000
+   cycles (game-ticks/s, the busy share of a profiled 32-cycle run; some
+   game must end); a ``bayes_bot`` self-play of 1024 envs (a model of
+   seeded counts) kernel next to plain for 8 ticks, then timed
+   (env-steps/s);
+18. one JSON line of every kernel (launches: phase 7's for the training
    kernels, one MonteCarlo decision's for ``event_jump`` and
    ``evaluate``, one NaiveMCTS decision's at the defaults for K12b-d, one
    ABCD decision's at the defaults for K12e-f, the PO main path's for
    K11a-c, a ContinuingNaiveMCTS decision's for K12g, a BS3_NaiveMCTS
    decision's for K13, [15]'s v3 step for ``env_health``, [16]'s
    checked step_vs, detailed steps and populations for the slice-10
-   kernels; ``cycle``'s
+   kernels, [17]'s InformedNaiveMCTS decision for ``aim_predict``, its
+   round robin for ``cooperative_act``, its bayes self-play for
+   ``nb_predict``; ``cycle``'s
    entry also holds its UTT v3 figures under ``utt_v3`` and the
-   epilogue's its eight-reward ones under ``eight_rewards``; every
+   epilogue's its eight-reward ones under ``eight_rewards``, and the
+   other modes of ``aim_predict``, ``nb_predict`` and ``arm_sample``
+   under theirs; every
    phase's under
    ``launches_by_phase``, [12] one entry a bot: the timed decision's, or
    for IDABCD and IDRTMinimax the reduced one's), the ``nvidia-smi``
@@ -277,6 +306,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -410,8 +440,9 @@ MM_DEEP = {"ABCD": dict(max_depth=4, playout_len=8, node_budget=16),
                                          stack_cap=10, node_budget=16),
            "SampledABCD": dict(k_moves=8, playout_len=8)}
 # phase 12: the profiled decision (device busy share) is the timed one,
-# but ABCD's at this budget (its trips are alike; 512 would trace ~40,000
-# launches)
+# but ABCD's and RTMinimax's at this budget (their trips are alike; 512
+# would trace ~40,000 launches, and the profile's host readback grows with
+# them)
 MM_PROFILE_ABCD_BUDGET = 64
 MM_TIMED = ("ABCD", "RTMinimax", "IDRTMinimaxRandomized", "SampledABCD")
 DFS_KERNELS = ("actor", "decode", "issue_env", "cycle", "event_jump",
@@ -479,6 +510,21 @@ SYN_CONTACT_TICKS = 8    # phase 16: its programs kernel vs plain from the
 COVER_CONTACT_TICKS = 8  # kept state most in contact, and the programs of
                          # every DSL kernel
 SYN_OPPONENTS = ("WorkerRush", "LightRush")
+# slice 11: the learned models
+PROFILE_PLAYOUTS = 16    # phase 14: the profiled decisions' iterations (a
+                         # quarter of the timed ones': the profile's host
+                         # readback grows with its launches)
+INF_CHECK = dict(n_playouts=3, playout_len=4)  # phase 17: the informed
+                         # decision kernel vs plain at the defaults' N, C, D
+LRR_BOTS = ("UnitActionProbabilityDistributionAI", "CooperativeAI",
+            "WorkerRush", "RandomBiasedAI")
+LRR_GAMES = 32           # phase 17: per ordered pair, 12 pairs x 32 lanes
+LRR_CHECK_CYCLES = 12    # ... kernel vs plain
+LRR_CYCLES = 1000        # ... then timed
+LRR_PROFILE_CYCLES = 32  # ... and a profiled window
+NB_CHECK_TICKS = 8       # phase 17: bayes_bot self-play kernel vs plain
+NB_TIME_TICKS = 100      # ... then timed
+LEARNED_KERNELS = ("aim_predict", "nb_predict", "cooperative_act")
 
 
 def plant_faults(post, rew, num_types):
@@ -792,6 +838,18 @@ def reroot_bytes(before, after, HW):
             + B * n1 * row_b)
 
 
+def seeded_nb_model(n_arms, sizes, seed):
+    """A naive-Bayes model (``ml.bayes.NaiveBayesModel``) of seeded counts:
+    prior [A] and one [A, Xj] table a feature, calibration 0.35."""
+    import numpy as np
+    from microrts_tpu_torch.ml.bayes import NaiveBayesModel
+    rng = np.random.default_rng(seed)
+    return NaiveBayesModel(
+        prior=rng.integers(0, 60, n_arms).astype(np.float64),
+        cpds=[rng.integers(0, 25, (n_arms, x)).astype(np.float64)
+              for x in sizes], calibration=0.35)
+
+
 def random_claims(gen, s, cfg, cells):
     """Candidates for the units of ``s`` in ``cells`` (bool [B, H, W]):
     most of them claims (a move, or a produce of a type the unit makes)
@@ -852,7 +910,7 @@ def main() -> int:
     from microrts_tpu_torch.bots.scripted import (random_bot,
                                                   random_bot_plain,
                                                   random_opponent)
-    from microrts_tpu_torch.config import RUSH_BOTS, make_bot
+    from microrts_tpu_torch.config import RUSH_BOTS, make_bot, pretrained_wr
     from microrts_tpu_torch.engine import fog
     from microrts_tpu_torch.engine.kernel import make_engine
     from microrts_tpu_torch.engine.types import (ATTACK, FIELD_DTYPES,
@@ -886,6 +944,9 @@ def main() -> int:
     from microrts_tpu_torch.ops import fields as FLD
     from microrts_tpu_torch.synth import dsl as DSL
     from microrts_tpu_torch.synth import search as SYN
+    from microrts_tpu_torch.bots import cooperative as CO
+    from microrts_tpu_torch.ml import bayes as NB
+    from microrts_tpu_torch.ml import pretrained as PT
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1143,7 +1204,17 @@ def main() -> int:
     rush_plans["expand (Light)"] = S.rush_plan(
         kenv, S.RushSpec("Light", expand=True))
     branches = {}
-    for rs in rush_records:
+    # every 3rd record (the last, with bases removed, among them), then the
+    # others only while a decision of the plain version is still missing
+    first = rush_records[::3]
+    order = first + [rs for i, rs in enumerate(rush_records) if i % 3]
+    n_rush = 0
+    for i, rs in enumerate(order):
+        if i >= len(first) and not [
+                b for b in S.RUSH_BRANCHES if not branches.get(b)
+                and not b.startswith("expand")]:
+            break
+        n_rush += 1
         for name, plan in rush_plans.items():
             for p in (0, 1):
                 errs["rush"] = max(errs["rush"], expect_equal(
@@ -1151,8 +1222,9 @@ def main() -> int:
                                            S.rush_bot_plain(penv, plan, rs, p,
                                                             branches))]))
     torch.cuda.synchronize()
-    print(f"    rush: {len(rush_plans)} specs x {len(rush_records)} records "
-          f"x 2 players equal to plain; decisions of the plain version "
+    print(f"    rush: {len(rush_plans)} specs x {n_rush} of "
+          f"{len(rush_records)} records x 2 players equal to plain; "
+          f"decisions of the plain version "
           f"{branches}", flush=True)
     missing = [b for b in S.RUSH_BRANCHES if not branches.get(b)
                and not b.startswith("expand")]
@@ -1798,6 +1870,89 @@ def main() -> int:
           f"{macro_acts}) and expert_detailed ({det_acts} acting cells) "
           f"equal to plain ({time.perf_counter() - t1:.1f} s)", flush=True)
     lap("[4] slice 10")
+    # slice 11: the learned models (K14a-c, K12b's informed mode) on every
+    # 2nd rush record, both players and the per-lane player; the same
+    # holds run on [16]'s kept in-contact state in [17]
+    t1 = time.perf_counter()
+    aim = PT.load_pretrained(pretrained_wr(), kenv)
+    nbt = NB.nb_tables(seeded_nb_model(NA, NB.feature_sizes(cfg), 0), dev)
+    coop_k = CO.cooperative_bot(kenv, seed=1).bot   # genomes whose units act
+
+    def hold_learned(st, label, acts):
+        """aim_predict (4 modes), nb_predict (3), cooperative_act and the
+        informed arm_sample on ``st`` kernel vs plain, exact; adds to
+        ``acts`` the acting cells each saw."""
+        for p in (0, 1, lane_pl):
+            mask = penv.masks_plain(st, p)
+            can = mask[..., 0].bool()
+            gum = gumbel_noise((B, H, W, NA), gen, dev)
+            for mode in PT.MODES:
+                gg = gum if mode == "sample" else None
+                k = PT.aim_predict(aim, st, mask, p, mode, gg)
+                q = PT.aim_predict(aim, st, mask, p, mode, gg, plain=True)
+                pairs = ([(mode, k, q)] if mode in ("logits", "prior")
+                         else [(f"{mode} arms", k[0], q[0]),
+                               (f"{mode} action", k[1], q[1])])
+                errs["aim_predict"] = max(errs["aim_predict"], expect_equal(
+                    f"aim_predict {label}", pairs))
+            for mode in NB.MODES:
+                gg = gum if mode == "sample" else None
+                k = NB.nb_predict(nbt, cfg, asp, st, mask, p, mode, gg)
+                q = NB.nb_predict(nbt, cfg, asp, st, mask, p, mode, gg,
+                                  plain=True)
+                pairs = ([(mode, k, q)] if mode == "logits"
+                         else [(f"{mode} arms", k[0], q[0]),
+                               (f"{mode} action", k[1], q[1])])
+                errs["nb_predict"] = max(errs["nb_predict"], expect_equal(
+                    f"nb_predict {label}", pairs))
+            nets = CO.cooperative_nets(kenv, st, p, coop_k.genomes,
+                                       coop_k.dims, 4)
+            ka = KN.COOPERATIVE_ACT(cfg, st, p, nets)
+            errs["cooperative_act"] = max(errs["cooperative_act"],
+                                          expect_equal(
+                f"cooperative_act {label}", [
+                    ("actions", ka, CO.cooperative_act_plain(penv, st, p,
+                                                             nets))]))
+            del nets
+            pri = PT.aim_predict(aim, st, mask, p, "prior")
+            shape = (B, ARM_ROWS, H, W, NA)
+            tvis = torch.where(
+                torch.rand(shape, generator=gen, device=dev) < 0.85,
+                torch.randint(1, 4, shape, generator=gen, device=dev,
+                              dtype=torch.int32), 0).int()
+            tvis[:, 0] = 0        # row 0 unvisited: the prior's own draw
+            tacc = torch.randn(shape, generator=gen, device=dev) * tvis
+            nvis = torch.randint(1, 50, (B, ARM_ROWS), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            cur = torch.randint(0, ARM_ROWS, (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            pl = p if isinstance(p, torch.Tensor) else torch.full(
+                (B,), p, dtype=torch.int32, device=dev)
+            args = (asp, mask, gum, "informed", (tvis, tacc, nvis), cur, pl,
+                    0, 0.3, TS._f32(1.0 - 0.3), 0.05, pri)
+            ka2, kact = AR.arm_sample(*args)
+            pa2, pact = AR.arm_sample(*args, plain=True)
+            errs["arm_sample"] = max(errs["arm_sample"], expect_equal(
+                f"arm_sample informed {label}", [("arms", ka2, pa2),
+                                                 ("action", kact, pact)]))
+            acts["acting cells"] += int(can.sum())
+            acts["cooperative actions"] += int((ka[..., 0] > 0).sum())
+            acts["informed draws"] += int((ka2 >= 0).sum())
+            del tvis, tacc, gum, pri
+
+    learned_acts = {"acting cells": 0, "cooperative actions": 0,
+                    "informed draws": 0}
+    for i, rs in enumerate(rush_records[::2]):
+        hold_learned(rs, f"rush record {2 * i}", learned_acts)
+    torch.cuda.synchronize()
+    if min(learned_acts.values()) == 0:
+        raise AssertionError(f"slice 11: nothing to hold ({learned_acts})")
+    print(f"    slice 11: aim_predict (4 modes), nb_predict (3 modes), "
+          f"cooperative_act and arm_sample informed on "
+          f"{len(rush_records[::2])} rush records x 3 player settings "
+          f"equal to plain ({learned_acts}; "
+          f"{time.perf_counter() - t1:.1f} s)", flush=True)
+    lap("[4] slice 11")
     print(f"[4] kernels equal to plain on {len(records)} recorded ticks "
           f"(max |diff| {errs})", flush=True)
 
@@ -2177,6 +2332,48 @@ def main() -> int:
             peng.lut("attack_range", dev)[xt], cfg.max_range),
         nbytes(xs_.utype, xs_.owner, xs_.hp) + 5 * cells,
         len(scan) * TARGET_OPS * cells, INT32_OPS_PER_S)
+    # slice 11 on the last full rush record, the per-lane players.  What
+    # every mode needs: the state planes read, every cell's can-act flag,
+    # the acting cells' other mask channels (the legal arms and types) and
+    # the model's tables; the logits and the prior write a float a cell and
+    # arm, the draws read the acting cells' Gumbels and write the arms and
+    # actions (32 B a cell)
+    ls_ = rush_records[-2]
+    smask = penv.masks_plain(ls_, lane_pl)
+    sla = AR.arm_masks_packed(asp, smask)
+    l_act = int(sla.any(-1).sum())
+    l_rows = 4 * cells + 4 * l_act * (smask.shape[-1] - 1)
+    lgum = gumbel_noise((B, H, W, NA), gen, dev)
+    aim_in = (nbytes(ls_.utype, ls_.owner, ls_.terrain, ls_.carried,
+                     ls_.busy, ls_.atype, ls_.aparam, lane_pl) + l_rows
+              + nbytes(aim.log_prior, aim.cpd_cat, aim.log_tf, aim.nf_base,
+                       aim.calibration, aim.arm_type))
+    nb_in = (nbytes(ls_.utype, ls_.owner, ls_.terrain, ls_.carried, lane_pl)
+             + l_rows + nbytes(nbt.log_prior, nbt.logc))
+    timing["aim_predict"] = (
+        lambda: PT.aim_predict(aim, ls_, smask, lane_pl, "prior"),
+        lambda: PT.aim_predict(aim, ls_, smask, lane_pl, "prior",
+                               plain=True),
+        aim_in + 4 * NA * cells)
+    timing["nb_predict"] = (
+        lambda: NB.nb_predict(nbt, cfg, asp, ls_, smask, lane_pl, "sample",
+                              lgum),
+        lambda: NB.nb_predict(nbt, cfg, asp, ls_, smask, lane_pl, "sample",
+                              lgum, plain=True),
+        nb_in + 4 * NA * l_act + 32 * cells)
+    # cooperative_act: the planes, the stocks, the idle own units' rows of
+    # the nets (HW + T + 1 floats) in, the actions out; or the base
+    # field's H + W sweeps of FIELD_OPS a cell
+    lnets = CO.cooperative_nets(kenv, ls_, lane_pl, coop_k.genomes,
+                                coop_k.dims, 4)
+    l_idle = int(((ls_.utype > 0) & (ls_.owner == lane_pl[:, None, None])
+                  & ~ls_.busy).sum())
+    timing["cooperative_act"] = (
+        lambda: KN.COOPERATIVE_ACT(cfg, ls_, lane_pl, lnets),
+        lambda: CO.cooperative_act_plain(penv, ls_, lane_pl, lnets),
+        nbytes(ls_.utype, ls_.owner, ls_.terrain, ls_.busy, ls_.carried,
+               ls_.resources, lane_pl) + 4 * l_idle * lnets.shape[-1]
+        + 28 * cells, (H + W) * FIELD_OPS * cells, INT32_OPS_PER_S)
     del kview, kvis, kobs_po, iout
     assert A == lg.shape[-1]
     times = {}
@@ -2211,18 +2408,48 @@ def main() -> int:
             lambda: (p3env.rewards_plain(st, r["c0"], r["c1"], r["post"]),
                      p3env.dones_plain(r["post"])),
             times["epilogue"][3] + nbytes(epi8[0]) - nbytes(epi_out[0]))}
+    # the other modes of the slice-11 kernels
+    for mode, out_b in (("logits", 4 * NA * cells),
+                        ("sample", 4 * NA * l_act + 32 * cells),
+                        ("greedy", 32 * cells)):
+        gg = lgum if mode == "sample" else None
+        variants[("aim_predict", mode)] = (
+            lambda m=mode, g=gg: PT.aim_predict(aim, ls_, smask, lane_pl, m,
+                                                g),
+            lambda m=mode, g=gg: PT.aim_predict(aim, ls_, smask, lane_pl, m,
+                                                g, plain=True),
+            aim_in + out_b)
+    for mode, out_b in (("logits", 4 * NA * cells), ("greedy", 32 * cells)):
+        variants[("nb_predict", mode)] = (
+            lambda m=mode: NB.nb_predict(nbt, cfg, asp, ls_, smask, lane_pl,
+                                         m),
+            lambda m=mode: NB.nb_predict(nbt, cfg, asp, ls_, smask, lane_pl,
+                                         m, plain=True),
+            nb_in + out_b)
+    # arm_sample informed (InformedNaiveMCTS's descent): egreedy's needs
+    # of the arm record plus the prior at the acting cells' legal arms
+    ar_pri = torch.rand(ar["gum"].shape, generator=gen, device=dev)
+    ar_la = int(AR.arm_masks_packed(asp, ar["mask"]).sum())
+    variants[("arm_sample", "informed")] = (
+        lambda: AR.arm_sample(asp, ar["mask"], ar["gum"], "informed",
+                              ar["tables"], ar["cur"], lane_pl, 0, 0.3,
+                              TS._f32(0.7), 0.05, ar_pri),
+        lambda: AR.arm_sample(asp, ar["mask"], ar["gum"], "informed",
+                              ar["tables"], ar["cur"], lane_pl, 0, 0.3,
+                              TS._f32(0.7), 0.05, ar_pri, plain=True),
+        arm_bytes + 4 * ar_la)
     variant_times = {}
     for (name, var), (kfn, pfn, byts) in variants.items():
         kms, kpaced = cuda_ms(kfn, n=200)
         pms, ppaced = cuda_ms(pfn, n=PLAIN_REPS, warm=1)
         bound = byts / HBM_BYTES_PER_S * 1e3
-        variant_times[name] = {var: dict(ms=kms, plain_ms=pms,
-                                         bound_ms=bound, bound_by="bytes")}
+        variant_times.setdefault(name, {})[var] = dict(
+            ms=kms, plain_ms=pms, bound_ms=bound, bound_by="bytes")
         print(f"    {name + ' ' + var:18s} kernel {kms * 1e3:8.2f} "
               f"({kpaced * 1e3:8.2f}) us  plain {pms * 1e3:9.2f} "
               f"({ppaced * 1e3:9.2f}) us  bound {bound * 1e3:6.2f} us by "
               f"bytes ({byts / 1e6:.2f} MB)", flush=True)
-    del variants
+    del variants, lnets, lgum, ar_pri
 
     lap("[4] the timings")
     # ---- [5] the main path through the kernels, next to the plain path
@@ -2259,7 +2486,8 @@ def main() -> int:
                 env_health=0, distance_fields=0, descend_direction=0,
                 distance_field2=0, descend_direction_excluding=0,
                 expert_macro=0, expert_detailed=0, range_cover=0,
-                dsl_target=0)
+                dsl_target=0, aim_predict=0, nb_predict=0,
+                cooperative_act=0)
     if counts != {n: w * MAIN_TICKS for n, w in want.items()}:
         raise AssertionError(f"launch counts {counts}, want per step {want}")
     if resets == 0:
@@ -3015,8 +3243,12 @@ def main() -> int:
               f"{peak:.2f} GiB ({peak - held:.2f} GiB above what the script "
               f"held before); {kind}, {smi}", flush=True)
         t2 = time.perf_counter()
-        pbot = (MM.abcd_bot(kenv, node_budget=MM_PROFILE_ABCD_BUDGET)
-                if name == "ABCD" else bot)
+        budget = "as timed"
+        pbot = bot
+        if name in ("ABCD", "RTMinimax"):
+            budget = MM_PROFILE_ABCD_BUDGET
+            pbot = (MM.abcd_bot if name == "ABCD" else MM.rt_minimax_bot)(
+                kenv, node_budget=budget)
         # the card's kernels only: tracing every host operation too would
         # slow the decision and take seconds to read back
         with torch.profiler.profile(
@@ -3032,7 +3264,7 @@ def main() -> int:
                 for n in ("enum_next", "minimax_step")}
         print(f"    {name}: device busy {100 * busy / window:.1f}% of a "
               f"profiled decision (node budget "
-              f"{MM_PROFILE_ABCD_BUDGET if name == 'ABCD' else 'as timed'}; "
+              f"{budget}; "
               f"{busy:.0f} of {window:.0f} us); enum_next/minimax_step "
               f"device time {mine} us; top kernels {top} us "
               f"({time.perf_counter() - t2:.1f} s)", flush=True)
@@ -3316,10 +3548,12 @@ def main() -> int:
         nm_secs.append(time.perf_counter() - t1)
     stateful_counts["BS3"] = tc
     sec, nm_sec = statistics.median(bs3_secs), statistics.median(nm_secs)
+    pbs3 = BS.believe_state_bot(
+        kenv, TS.naive_mcts_bot(kenv, n_playouts=PROFILE_PLAYOUTS), level=3)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        bs3.step(big, bmem, 0, nz)
+        pbs3.step(big, bmem, 0, nz)
         torch.cuda.synchronize()
         window = (time.perf_counter() - t1) * 1e6
     busy, kern = device_busy(prof)
@@ -3336,8 +3570,8 @@ def main() -> int:
           f"{ {n: c for n, c in tc.items() if c} }; peak device memory "
           f"{peak:.2f} GiB ({peak - held:.2f} GiB above what the script held "
           f"before); device busy {100 * busy / window:.1f}% of a profiled "
-          f"decision ({busy:.0f} of {window:.0f} us); {kind}, {smi}",
-          flush=True)
+          f"decision of {PROFILE_PLAYOUTS} iterations ({busy:.0f} of "
+          f"{window:.0f} us); {kind}, {smi}", flush=True)
     del prof, kern, bmem, bmem2
 
     cont = make_bot("ContinuingNaiveMCTS", kenv)
@@ -3386,10 +3620,12 @@ def main() -> int:
                 rr_bytes = reroot_bytes(cmem, after, H * W)
                 del copies, pcopies, after
                 # the profiled decision
+                pcont = TS.naive_mcts_continuing(
+                    kenv, n_playouts=PROFILE_PLAYOUTS)
                 with torch.profiler.profile(activities=[
                         torch.profiler.ProfilerActivity.CUDA]) as prof:
                     t1 = time.perf_counter()
-                    cont.step(cs, cmem, 0, nz)
+                    pcont.step(cs, cmem, 0, nz)
                     torch.cuda.synchronize()
                     window = (time.perf_counter() - t1) * 1e6
                 cbusy, kern = device_busy(prof)
@@ -3432,7 +3668,8 @@ def main() -> int:
           f"tree is "
           f"{nbytes(cmem.tacc, cmem.tvis) / 2**30:.2f} GiB of tacc/tvis); "
           f"device busy {100 * cbusy / window:.1f}% of a profiled decision "
-          f"({cbusy:.0f} of {window:.0f} us); mcts_reroot of the last "
+          f"of {PROFILE_PLAYOUTS} iterations ({cbusy:.0f} of {window:.0f} "
+          f"us); mcts_reroot of the last "
           f"frame's trees equal to plain (whole trees, a game keeps up to "
           f"{rr_kept} rows); mcts_reroot alone "
           f"{rr_kms * 1e3:.2f} us (plain {rr_pms * 1e3:.2f} us), bound "
@@ -4005,7 +4242,187 @@ def main() -> int:
     print(f"    [16] took {time.perf_counter() - t0:.1f} s (the script "
           f"{time.perf_counter() - t_main:.1f} s so far)", flush=True)
 
-    # ---- [17] results
+    # ---- [17] slice 11, the learned models at full width: the new kernels
+    # held on [16]'s kept in-contact state; InformedNaiveMCTS on the 64
+    # timed games, kernel vs plain at the defaults' tree shapes, then timed
+    # at the JAX defaults; the learned bots' round robin, kernel vs plain,
+    # then timed; the naive-Bayes self-play, kernel vs plain, then timed
+    t0 = time.perf_counter()
+    contact_acts = {"acting cells": 0, "cooperative actions": 0,
+                    "informed draws": 0}
+    hold_learned(snap_st, f"in contact (tick {snap_tick})", contact_acts)
+    torch.cuda.synchronize()
+    del snap_st, start
+    print(f"[17] aim_predict (4 modes), nb_predict (3 modes), "
+          f"cooperative_act and arm_sample informed on [16]'s in-contact "
+          f"state (tick {snap_tick}, {B} lanes, 3 player settings) equal to "
+          f"plain ({contact_acts}; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t1 = time.perf_counter()
+    informed = functools.partial(TS.informed_naive_mcts_bot, model=aim)
+    kt, ka = tree_decision(kenv, informed, INF_CHECK, big, 70)
+    pt, pa = tree_decision(penv, informed, INF_CHECK, big, 70)
+    expect_equal("InformedNaiveMCTS decision at the defaults' tree shapes",
+                 tree_pairs(kt, pt) + [("actions", ka, pa)])
+    print(f"    InformedNaiveMCTS: one decision of {TREE_TIME_GAMES} games "
+          f"at the defaults' N, C and D ({INF_CHECK}) identical to the "
+          f"plain path: trees (nodes up to {int(kt.nnodes.max())}) and "
+          f"actions ({time.perf_counter() - t1:.1f} s)", flush=True)
+    del kt, pt
+    ibot = make_bot("InformedNaiveMCTS", kenv)
+    g = torch.Generator(device=dev)
+    g.manual_seed(71)
+    ibot(big, 0, ibot.draw(g, TREE_TIME_GAMES))               # warm
+    nz = ibot.draw(g, TREE_TIME_GAMES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    KN.reset_counts()
+    t1 = time.perf_counter()
+    act = ibot(big, 0, nz)
+    torch.cuda.synchronize()
+    inf_sec = time.perf_counter() - t1
+    inf_counts = KN.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    inf_k = TREE_KERNELS + ("aim_predict",)
+    if (any(inf_counts[n] == 0 for n in inf_k)
+            or any(inf_counts[n] for n in inf_counts if n not in inf_k)):
+        raise AssertionError(f"a timed InformedNaiveMCTS decision launched "
+                             f"{inf_counts}")
+    if act.shape != (TREE_TIME_GAMES, H, W, 7) or not bool(
+            (act[..., 0] > 0).any()):
+        raise AssertionError("InformedNaiveMCTS: no unit acts")
+    print(f"    InformedNaiveMCTS at the JAX defaults (make_bot: "
+          f"{ibot.bot.n_playouts} playouts of 100 ticks, the AIM-WR prior "
+          f"and model playouts): one warm decision of {TREE_TIME_GAMES} "
+          f"games in {inf_sec:.3f} s: game-decisions/s/card "
+          f"{TREE_TIME_GAMES / inf_sec:.2f} (NaiveMCTS in [11]: "
+          f"{tree_rates['NaiveMCTS']:.2f}); {sum(inf_counts.values())} "
+          f"launches { {n: c for n, c in inf_counts.items() if c} }; peak "
+          f"device memory {peak:.2f} GiB ({peak - held:.2f} GiB above what "
+          f"the script held before); {kind}, {smi}", flush=True)
+    del nz, act
+    lap("[17] InformedNaiveMCTS")
+
+    # the learned bots' round robin (the tournament draws each bot's noise
+    # a frame through its draw)
+    t1 = time.perf_counter()
+    TN._games_fn = recording_games_fn
+
+    def lrr(env, cycles, coop_acts=None):
+        bots = {n: make_bot(n, env) for n in LRR_BOTS}
+        # CooperativeAI on seed 1's genomes, whose units act (the default
+        # seed's act on none of basesWorkers16x16's); ``coop_acts`` gets
+        # the count of its acting cells a frame
+        coop = CO.cooperative_bot(env, seed=1)
+        if coop_acts is not None:
+            inner = coop.bot
+
+            def counted(st, p, nz=None):
+                a = inner(st, p)
+                coop_acts.append(int((a[..., 0] > 0).sum()))
+                return a
+            coop = S.Opponent(counted, coop.draw)
+        bots["CooperativeAI"] = coop
+        table = TN.round_robin(env, bots, LRR_GAMES, cycles, seed=7)
+        torch.cuda.synchronize()
+        return table, *games.pop()
+
+    KN.reset_counts()
+    coop_acts = []
+    ktab, kw, ks, kframes = lrr(kenv, LRR_CHECK_CYCLES, coop_acts)
+    lrr_check_counts = KN.counts()
+    if sum(coop_acts) == 0:
+        raise AssertionError("CooperativeAI issued no action in the "
+                             "learned round robin's check")
+    ptab, pw, ps, _ = lrr(penv, LRR_CHECK_CYCLES)
+    expect_equal("learned round robin", state_pairs(ks, ps)
+                 + [("winners", kw, pw)])
+    same_tables("learned round robin", ktab, ptab)
+    if min(lrr_check_counts[n] for n in ("aim_predict", "cooperative_act",
+                                         "rush", "actor")) == 0:
+        raise AssertionError(f"the learned round robin launched "
+                             f"{lrr_check_counts}")
+    print(f"    learned round robin {LRR_BOTS}: {ks.batch} lanes x "
+          f"{LRR_CHECK_CYCLES} cycles ({kframes} frames) identical to the "
+          f"plain path (states, winners, table); CooperativeAI's acting "
+          f"cells {sum(coop_acts)} over {len(coop_acts)} calls; launches "
+          f"{ {n: c for n, c in lrr_check_counts.items() if c} } "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    del ks, ps
+    KN.reset_counts()
+    t1 = time.perf_counter()
+    ltab, lw, ls, lframes = lrr(kenv, LRR_CYCLES)
+    lrr_sec = time.perf_counter() - t1
+    lrr_counts = KN.counts()
+    if ltab.wins.sum() == 0:
+        raise AssertionError("no game of the learned round robin ended")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        lrr(kenv, LRR_PROFILE_CYCLES)
+        window = (time.perf_counter() - t1) * 1e6
+    busy, kern = device_busy(prof)
+    TN._games_fn = games_fn
+    lrr_ticks = lane_ticks(ls)
+    wr = LRR_BOTS.index("WorkerRush")
+    print(ltab.table())
+    print(f"    learned round robin game-ticks/s/card: "
+          f"{lrr_ticks / lrr_sec:.1f} ({lrr_ticks} lane ticks in "
+          f"{lrr_sec:.3f} s, {lframes} frames, max_cycles {LRR_CYCLES}); "
+          f"WorkerRush's wins against "
+          f"{ {n: int(ltab.wins[wr, i]) for i, n in enumerate(LRR_BOTS)} } "
+          f"of {2 * LRR_GAMES} games each; device busy "
+          f"{100 * busy / window:.1f}% of a profiled {LRR_PROFILE_CYCLES}-"
+          f"cycle run (top kernels: "
+          f"{[(a.key[:24], round(a.self_device_time_total)) for a in kern[:4]]}"
+          f" us); launches { {n: c for n, c in lrr_counts.items() if c} }; "
+          f"{kind}, {smi}", flush=True)
+    del ls, prof, kern
+    lap("[17] learned round robin")
+
+    # the naive-Bayes self-play of B envs (a model of seeded counts), so
+    # that nb_predict runs under load
+    t1 = time.perf_counter()
+    nbm = seeded_nb_model(NA, NB.feature_sizes(cfg), 1)
+    kb, pb = NB.bayes_bot(kenv, nbm), NB.bayes_bot(penv, nbm)
+    g = torch.Generator(device=dev)
+    g.manual_seed(72)
+    ks = kenv.reset(B)
+    ps = ks.clone()
+    KN.reset_counts()
+    for t in range(NB_CHECK_TICKS):
+        n0, n1 = kb.draw(g, B), kb.draw(g, B)
+        ks = kenv.step(ks, kb(ks, 0, n0), kb(ks, 1, n1))[0]
+        ps = penv.step(ps, pb(ps, 0, n0), pb(ps, 1, n1))[0]
+        expect_equal(f"bayes self-play tick {t}", state_pairs(ks, ps))
+    nb_counts = KN.counts()
+    if nb_counts["nb_predict"] != 2 * NB_CHECK_TICKS:
+        raise AssertionError(f"the bayes self-play launched {nb_counts}")
+    del ps
+    for _ in range(3):
+        ks = kenv.step(ks, kb(ks, 0, kb.draw(g, B)),
+                       kb(ks, 1, kb.draw(g, B)))[0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(NB_TIME_TICKS):
+        ks = kenv.step(ks, kb(ks, 0, kb.draw(g, B)),
+                       kb(ks, 1, kb.draw(g, B)))[0]
+    torch.cuda.synchronize()
+    nb_sps = B * NB_TIME_TICKS / (time.perf_counter() - t2)
+    units = int((ks.utype > 0).sum())
+    print(f"    bayes_bot self-play: {B} envs x {NB_CHECK_TICKS} ticks "
+          f"identical to the plain path (launches "
+          f"{ {n: c for n, c in nb_counts.items() if c} }), then "
+          f"env-steps/s/card {nb_sps:.1f} over {NB_TIME_TICKS} ticks "
+          f"({units} units on the boards at the end; "
+          f"{time.perf_counter() - t1:.1f} s); {kind}, {smi}", flush=True)
+    del ks
+    lap("[17] bayes self-play")
+    print(f"    [17] took {time.perf_counter() - t0:.1f} s (the script "
+          f"{time.perf_counter() - t_main:.1f} s so far)", flush=True)
+
+    # ---- [18] results
     kernels = []
     tree_k = ("arm_sample", "arms_to_action", "mcts_descend",
               "mcts_backprop")
@@ -4029,6 +4446,9 @@ def main() -> int:
                     else cover_counts[k.name] if k.name in (
                         "distance_field2", "descend_direction_excluding",
                         "range_cover")
+                    else inf_counts[k.name] if k.name == "aim_predict"
+                    else lrr_counts[k.name] if k.name == "cooperative_act"
+                    else nb_counts[k.name] if k.name == "nb_predict"
                     else mc_counts[k.name] if new else upd_counts[k.name])
         by_phase = {"5": counts[k.name], "6": roll_counts[k.name],
                     "7": upd_counts[k.name], "8": rr_counts[k.name],
@@ -4053,7 +4473,10 @@ def main() -> int:
                          "16 evaluate_population in contact":
                              syn_go[0][k.name],
                          "16 every DSL kernel in contact":
-                             cover_counts[k.name]})
+                             cover_counts[k.name],
+                         "17 InformedNaiveMCTS": inf_counts[k.name],
+                         "17 learned round robin": lrr_counts[k.name],
+                         "17 bayes self-play": nb_counts[k.name]})
         kernels.append(dict(
             name=k.name, status="equal to plain", route="cuda",
             source=k.source, replaces=k.replaces, launches=launches,

@@ -8,9 +8,9 @@ Its randomness comes in as ``u``, float32 uniforms in [0, 1) of shape
 the same draws can be fed to the JAX package in tests.  The rush bots are
 deterministic and take no uniforms.  An ``Opponent`` pairs a bot with
 ``draw(gen, B)``, which makes the noise the bot reads (the trainer, the
-tournaments and the search bots draw through it).
-
-Not ported yet: ``distribution_bot`` (it needs the learned models).
+tournaments and the search bots draw through it).  ``distribution_bot``
+(UnitActionProbabilityDistributionAI with fixed type weights) reads a
+``DistributionNoise``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from .. import kernels as KN
 from ..engine.kernel import as_player, pull, shift
 from ..engine.types import ATTACK, HARVEST, INF, MOVE, PRODUCE, RETURN, State
 from ..env.gridnet import GridnetEnv
+from ..models.gridnet_policy import gumbel_noise
 from ..ops.fields import descend_direction_plain, distance_field_plain
 
 I32 = torch.int32
@@ -120,6 +121,50 @@ def single_unit_opponent(env: GridnetEnv, bias: float = 5.0) -> Opponent:
             torch.rand(shape + (2,), generator=gen, device=env.device),
             torch.rand(shape, generator=gen, device=env.device))
     return Opponent(random_biased_single_unit_bot(env, bias), draw)
+
+
+class DistributionNoise(NamedTuple):
+    """``distribution_bot``'s draws for ``B`` states: the type draw's
+    Gumbels float32 ``[B, H, W, 6]`` (JAX: k1) and the inner RandomAI's
+    uniforms ``[B, H, W, 2]`` (k2)."""
+    gumbel: torch.Tensor
+    u: torch.Tensor
+
+
+def distribution_bot(env: GridnetEnv, type_weights) -> Opponent:
+    """UnitActionProbabilityDistributionAI (ai/stochastic/*) with a fixed
+    positive weight per action type ``type_weights`` [6] (NONE, MOVE,
+    HARVEST, RETURN, PRODUCE, ATTACK), scripted.py:509-528: every acting
+    unit draws its type from the weights of its legal types (all alike
+    where none has weight), its parameters as RandomAI draws them.  On
+    CUDA tensors the masks and the inner RandomAI are one ``actor``
+    launch."""
+    weights = (1.0,) * 6
+    tw_all = torch.tensor([float(v) for v in type_weights],
+                          dtype=torch.float32)
+
+    def bot(state: State, player, noise: DistributionNoise) -> torch.Tensor:
+        if env.engine._use_kernel(noise.u):
+            base, mask = KN.ACTOR(env.cfg.engine, state, player, u=noise.u,
+                                  weights=weights, masks=True)
+        else:
+            base = random_bot_plain(env, state, player, noise.u, weights)
+            mask = env.masks_plain(state, player)
+        tw = torch.where(mask[..., 1:7].bool(), tw_all.to(mask.device), 0.0)
+        tw = torch.where(tw.sum(-1, keepdim=True) > 0, tw,
+                         torch.ones_like(tw))
+        at = (torch.log(tw + 1e-9) + noise.gumbel).argmax(-1)
+        out = base.clone()
+        out[..., 0] = torch.where(mask[..., 0].bool(), at, 0).to(I32)
+        return out
+
+    def draw(gen: torch.Generator, batch: int) -> DistributionNoise:
+        shape = (batch, env.h, env.w)
+        return DistributionNoise(
+            gumbel_noise(shape + (6,), gen, env.device),
+            torch.rand(shape + (2,), generator=gen, device=env.device))
+
+    return Opponent(bot, draw)
 
 
 def kth_legal(L: torch.Tensor, j: torch.Tensor) -> torch.Tensor:

@@ -35,8 +35,11 @@ propagation and the playout leave its tree as it is.
 across decisions and re-roots it in place at the node that matches the
 real state (``mcts_reroot``, K12g).
 
-Not ported yet: ``prior_fn`` (InformedNaiveMCTS, which needs the learned
-models).
+``prior_fn`` makes it InformedNaiveMCTS (``informed_naive_mcts_bot``): a
+descent step also runs the learned model's prior (``aim_predict``, K14a)
+at the node, and the local bandits draw in ``arm_sample``'s informed
+mode; the playouts run the model too, their Gumbel noise drawn through
+the rollout ``Opponent``'s ``draw``.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from ..models.gridnet_policy import gumbel_noise
 from ..ops import arms as AR
 from ..ops.arms import (ArmSpace, arm_sample, arm_space, arms_to_action,
                         one_hot_arms)
-from ..ops.playout import can_act, fast_forward, make_playout, playout_noise
+from ..ops.playout import can_act, fast_forward, make_playout
 from .believestate import StatefulBot
 from .scripted import Opponent
 from .search import _default_eval
@@ -129,15 +132,19 @@ class TreeStep(NamedTuple):
 class MCTSNoise:
     """NaiveMCTS's draws for one decision of ``B`` games, made on demand
     from ``gen``: ``step(it, d)`` (a ``TreeStep``) for descent step ``d``
-    of iteration ``it``, then ``play(it)``, the playout's uniforms float32
-    ``[n_decisions, 2, B * n_eval, H, W, 2]`` (JAX: ``kp``).  Under
-    random damage, ``u01(cycles, lanes)``: the damage uniforms of the
-    next ``cycles`` cycles.  Calls must come in the search's order."""
+    of iteration ``it``, then ``play(it)``, the playout's draws for ``B *
+    n_eval`` lanes (JAX: ``kp``) by ``play_draw(gen, lanes)`` (the
+    playout's ``draw``: RandomBiasedAI's uniforms float32
+    ``[n_decisions, 2, lanes, H, W, 2]`` for the default rollout).  Under
+    random damage,
+    ``u01(cycles, lanes)``: the damage uniforms of the next ``cycles``
+    cycles.  Calls must come in the search's order."""
 
     def __init__(self, env: GridnetEnv, gen: torch.Generator, batch: int,
-                 n_children: int, n_decisions: int, n_eval: int = 1):
+                 n_children: int, play_draw: Callable, n_eval: int = 1):
         self.env, self.gen, self.batch = env, gen, batch
-        self.C, self.n_dec, self.n_eval = n_children, n_decisions, n_eval
+        self.C, self.n_eval = n_children, n_eval
+        self.play_draw = play_draw
         self.sp = arm_space(env)
 
     def _u(self, *shape):
@@ -154,9 +161,8 @@ class MCTSNoise:
         return TreeStep(self._u(B), pick, self._u(B), gumbel_noise(
             (B, env.h, env.w, self.sp.n_arms), self.gen, env.device))
 
-    def play(self, it: int) -> torch.Tensor:
-        return playout_noise(self.env, self.gen, self.n_dec,
-                             self.batch * self.n_eval)
+    def play(self, it: int):
+        return self.play_draw(self.gen, self.batch * self.n_eval)
 
 
 class UCTTreeNoise:
@@ -167,9 +173,10 @@ class UCTTreeNoise:
     ``split(kc2, K)``); ``play(it)`` and ``u01`` as ``MCTSNoise``'s."""
 
     def __init__(self, env: GridnetEnv, gen: torch.Generator, batch: int,
-                 n_candidates: int, n_decisions: int, n_eval: int = 1):
+                 n_candidates: int, play_draw: Callable, n_eval: int = 1):
         self.env, self.gen, self.batch = env, gen, batch
-        self.K, self.n_dec, self.n_eval = n_candidates, n_decisions, n_eval
+        self.K, self.n_eval = n_candidates, n_eval
+        self.play_draw = play_draw
         self.sp = arm_space(env)
 
     def root(self) -> torch.Tensor:
@@ -180,10 +187,7 @@ class UCTTreeNoise:
     def step(self, it: int, d: int) -> torch.Tensor:
         return self.root()
 
-    def play(self, it: int) -> torch.Tensor:
-        return playout_noise(self.env, self.gen, self.n_dec,
-                             self.batch * self.n_eval)
-
+    play = MCTSNoise.play
     u01 = MCTSNoise.u01
 
 
@@ -544,18 +548,22 @@ def naive_mcts_bot(env: GridnetEnv, n_playouts: int = 64,
     ``n_playouts`` iterations a decision, ``local_policy`` "egreedy"
     (NaiveMCTS), "ucb" (MLPSMCTS) or "unit_uct" (UCTUnitActions),
     ``phase2`` the TwoPhase epsilons after ``phase1_ratio`` of the
-    budget.  The returned ``Opponent``'s bot exposes ``init_tree``,
-    ``search``, ``best_action`` and ``dims``."""
-    if prior_fn is not None:
-        raise NotImplementedError(
-            "prior_fn (InformedNaiveMCTS) is not ported yet: ROADMAP.md "
-            "queue 1 item 11 (learned models)")
+    budget.  ``prior_fn(state, player, mask) -> float32 [B, H, W, A]``
+    (``ml.pretrained.make_prior_fn``) makes the egreedy rule
+    InformedNaiveMCTS's (treesearch.py:259-271); ``rollout_bot`` a
+    function ``bot(state, player, noise)`` or an ``Opponent``, whose
+    ``draw`` then makes the playouts' noise.  The returned ``Opponent``'s
+    bot exposes ``init_tree``, ``search``, ``best_action`` and
+    ``dims``."""
     if local_policy not in ("egreedy", "ucb", "unit_uct"):
         raise ValueError(f"unknown local_policy {local_policy!r}")
     H, W = env.h, env.w
     sp = arm_space(env)
     A = sp.n_arms
     N, C, D = max_nodes, max_children, max_depth
+    # the prior applies to the egreedy rule only, as in the JAX package
+    mode = ("informed" if prior_fn is not None and local_policy == "egreedy"
+            else local_policy)
     playout = make_playout(env, playout_len, _default_eval(env, eval_fn),
                            gamma=gamma, rollout_bot=rollout_bot,
                            n_eval=n_eval, n_decisions=n_decisions)
@@ -610,10 +618,12 @@ def naive_mcts_bot(env: GridnetEnv, n_playouts: int = 64,
             for d in range(D + 2):
                 sn = noise.step(it, d)
                 mask = env.masks(w.st, w.player)
+                pri = (prior_fn(w.st, w.player, mask) if mode == "informed"
+                       else None)
                 arms, action = arm_sample(
-                    sp, mask, sn.gumbel, local_policy,
+                    sp, mask, sn.gumbel, mode,
                     (tree.tvis, tree.tacc, tree.nvis), w.cur, w.player,
-                    maxp, el, gw, ucb_c, plain=env.engine.plain)
+                    maxp, el, gw, ucb_c, pri, plain=env.engine.plain)
                 st1 = _issue_player(env, w.st, action, w.player)
                 st2, done2 = _advance(env, st1, u01=_cycle_u01(
                     env, noise, ADVANCE_EVENTS, B))
@@ -639,7 +649,7 @@ def naive_mcts_bot(env: GridnetEnv, n_playouts: int = 64,
                            act, 0)
 
     def draw(gen: torch.Generator, batch: int) -> MCTSNoise:
-        return MCTSNoise(env, gen, batch, C, playout.n_decisions, n_eval)
+        return MCTSNoise(env, gen, batch, C, playout.draw, n_eval)
 
     def bot(state: State, player: int, noise: MCTSNoise) -> torch.Tensor:
         tree = init_tree(state, player)
@@ -652,6 +662,26 @@ def naive_mcts_bot(env: GridnetEnv, n_playouts: int = 64,
     bot.dims = (N, C, D)
     bot.n_playouts = n_playouts
     return Opponent(bot, draw)
+
+
+def informed_naive_mcts_bot(env: GridnetEnv, model, **kw) -> Opponent:
+    """InformedNaiveMCTS (ai/mcts/informedmcts/InformedNaiveMCTS.java,
+    treesearch.py:777-794): NaiveMCTS whose per-unit exploration follows
+    a learned unit-action distribution (``make_prior_fn``), and whose
+    playouts play the same model (``pretrained_bayes_bot``,
+    InformedNaiveMCTS.java:72-84) unless ``kw`` names a ``rollout_bot``
+    (None: RandomBiasedAI, as JAX's ``model_playouts=False``).
+    ``model``: a pretrained XML path or an ``ml.pretrained.PretrainedBayes``;
+    defaults eps0 0.4, eps_l 0.3."""
+    from ..ml.pretrained import (PretrainedBayes, load_pretrained,
+                                 make_prior_fn, pretrained_bayes_bot)
+    if not isinstance(model, PretrainedBayes):
+        model = load_pretrained(model, env)
+    kw.setdefault("eps0", 0.4)
+    kw.setdefault("eps_l", 0.3)
+    if "rollout_bot" not in kw:
+        kw["rollout_bot"] = pretrained_bayes_bot(env, model)
+    return naive_mcts_bot(env, prior_fn=make_prior_fn(env, model), **kw)
 
 
 # ======================================================================
@@ -934,7 +964,7 @@ def uct_tree_bot(env: GridnetEnv, n_playouts: int = 64,
         return torch.where((av > 0).any(1)[:, None, None, None], act, 0)
 
     def draw(gen: torch.Generator, batch: int) -> UCTTreeNoise:
-        return UCTTreeNoise(env, gen, batch, K, playout.n_decisions, n_eval)
+        return UCTTreeNoise(env, gen, batch, K, playout.draw, n_eval)
 
     def bot(state: State, player: int, noise: UCTTreeNoise) -> torch.Tensor:
         maxp = int(player)

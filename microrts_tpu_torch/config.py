@@ -5,7 +5,10 @@ instantiation analog of GameSettings/Game.java:44-50) and of ``make_bot``
 for the bots the port has.  ``make_bot`` returns a
 ``bots.scripted.Opponent`` (the bot and the draw of the noise it reads),
 or for the stateful bots (BS1/BS2/BS3_NaiveMCTS, ContinuingNaiveMCTS) a
-``bots.believestate.StatefulBot``.
+``bots.believestate.StatefulBot``.  The learned models
+(UnitActionProbabilityDistributionAI, InformedNaiveMCTS) read the shipped
+AIM-WR model from the port's ``assets/bayesianmodels/``; CooperativeAI
+plays fresh, seeded genomes (``bots.cooperative.default_genomes``).
 A name the JAX package knows but the port has not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
@@ -108,19 +111,27 @@ MINIMAX_BOTS = tuple(_MINIMAX)
 # levels around the default NaiveMCTS, and tree reuse
 _BELIEVE = dict(BS1_NaiveMCTS=1, BS2_NaiveMCTS=2, BS3_NaiveMCTS=3)
 STATEFUL_BOTS = tuple(_BELIEVE) + ("ContinuingNaiveMCTS",)
+# the learned models (microrts_tpu/config.py:133-155, :230-251)
+LEARNED_BOTS = ("UnitActionProbabilityDistributionAI", "InformedNaiveMCTS",
+                "CooperativeAI")
 PORTED_BOTS = ("PassiveAI", "RandomAI", "RandomBiasedAI",
                "RandomBiasedSingleUnitAI") + RUSH_BOTS \
-    + PO_BOTS + SEARCH_BOTS + TREE_BOTS + MINIMAX_BOTS + STATEFUL_BOTS
+    + PO_BOTS + SEARCH_BOTS + TREE_BOTS + MINIMAX_BOTS + STATEFUL_BOTS \
+    + LEARNED_BOTS
 
 # names the JAX package has and the port not yet: the ROADMAP.md queue 1
 # item that ports them
-_NOT_PORTED = dict(
-    UnitActionProbabilityDistributionAI="item 11 (learned models)",
-    InformedNaiveMCTS="item 11 (learned models)",
-    **{n: "item 10 (search bots)" for n in (
-        "SCV", "SCVAdaptive", "AHTN", "LSI", "PuppetNoPlan",
-        "PuppetSearchMCTS", "PuppetSearchAB", "PortfolioAI", "PGSAI",
-        "CooperativeAI")})
+_NOT_PORTED = {n: "item 10 (search bots)" for n in (
+    "SCV", "SCVAdaptive", "AHTN", "LSI", "PuppetNoPlan", "PuppetSearchMCTS",
+    "PuppetSearchAB", "PortfolioAI", "PGSAI")}
+
+
+def pretrained_wr() -> str:
+    """The AIM-WR pretrained Bayes model (the Java InformedNaiveMCTS
+    default, InformedNaiveMCTS.java:72-84), shipped in the port's
+    assets."""
+    from .utils.assets import asset_path
+    return asset_path("bayesianmodels/ActionInterdependenceModel-WR.xml")
 
 
 def make_bot(name: str, env):
@@ -159,6 +170,15 @@ def make_bot(name: str, env):
     if name == "ContinuingNaiveMCTS":
         from .bots import treesearch as TS
         return TS.naive_mcts_continuing(env)
+    if name == "UnitActionProbabilityDistributionAI":
+        from .ml.pretrained import pretrained_bayes_bot
+        return pretrained_bayes_bot(env, pretrained_wr())
+    if name == "InformedNaiveMCTS":
+        from .bots import treesearch as TS
+        return TS.informed_naive_mcts_bot(env, pretrained_wr())
+    if name == "CooperativeAI":
+        from .bots.cooperative import cooperative_bot
+        return cooperative_bot(env)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name} is not ported yet: ROADMAP.md queue 1 "

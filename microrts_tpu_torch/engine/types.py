@@ -172,6 +172,15 @@ class EngineConfig:
                    default=1)
 
     @property
+    def barracks_like(self) -> Tuple[int, ...]:
+        """Military-producing buildings, the learned models' "have
+        barracks" feature (FeatureGeneratorSimple.java:43): immobile,
+        non-stockpile, non-resource producers."""
+        return tuple(i for i in range(self.num_types)
+                     if not self.can_move[i] and not self.is_stockpile[i]
+                     and not self.is_resource[i] and any(self.produces[i]))
+
+    @property
     def det_damage(self) -> bool:
         """Damage is deterministic (UTT v1/v2): min == max for every type."""
         return all(mn == mx for mn, mx in zip(self.min_damage,

@@ -12,8 +12,8 @@ The launchers (``ACTOR``, ``DECODE``, ``ISSUE_ENV``, ``CYCLE``,
 ``MINIMAX_STEP``, ``ISSUE``, ``PO_STATE``, ``OBS_PO``, ``REROOT``,
 ``BELIEVE``, ``ENV_HEALTH``, ``DISTANCE_FIELDS``, ``DESCEND``,
 ``DISTANCE_FIELD2``, ``DESCEND_EXCLUDING``, ``EXPERT_MACRO``,
-``EXPERT_DETAILED``, ``RANGE_COVER``, ``DSL_TARGET``) take CUDA tensors
-only: they
+``EXPERT_DETAILED``, ``RANGE_COVER``, ``DSL_TARGET``, ``AIM_PREDICT``,
+``NB_PREDICT``, ``COOPERATIVE_ACT``) take CUDA tensors only: they
 check device, dtype, shape and contiguity, allocate the outputs, launch on
 PyTorch's current stream, raise if the launch reports a CUDA error, and
 count their launches in ``.launches``.  The callers in ``engine``,
@@ -43,7 +43,8 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 NAMES = ("actor", "decode", "issue_env", "cycle", "epilogue",
          "splice_obs", "policy_sample", "policy_logprob", "rush", "event",
          "evaluation", "arms", "tree", "enumerate", "minimax", "issue",
-         "fog", "believe", "fields", "expert", "synth")
+         "fog", "believe", "fields", "expert", "synth", "bayes",
+         "cooperative")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAXT = 16
@@ -270,6 +271,22 @@ class _TargetSpec(ctypes.Structure):
                 ("off_dy", ctypes.c_int * MAXOFF)]
 
 
+MAXNB = 8     # barracks-like types (csrc/bayes.cu)
+NF_PRED = 9   # features of the learned models, at most
+
+
+class _PredCfg(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("H", "W", "T", "D", "A", "M",
+                                            "nbarr")] + [
+        ("barr", ctypes.c_int * MAXNB), ("S", ctypes.c_int),
+        ("off", ctypes.c_int * NF_PRED), ("carry_max", ctypes.c_int)]
+
+
+class _AimTabs(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "log_prior", "cpd", "log_tf", "nf_base", "calib", "arm_type")]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -305,7 +322,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                                      _P, _P, _P, _P, _I, _P, _P]),
         "arms": dict(
             arm_sample=[ctypes.POINTER(_ArmCfg), _I, _I, _I, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _F, _F, _F, _P, _P, _P],
+                        _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _P],
             arms_to_action=[_I, _I, _I, _P, _P, _P]),
         "tree": dict(
             mcts_descend=[ctypes.POINTER(_TreeDims), _I, _I,
@@ -347,6 +364,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             range_cover=[cfg, _P, _P, _I, _P, _P],
             dsl_target=[cfg, ctypes.POINTER(_TargetSpec), st, _I, _I, _P, _P,
                         _P, _P, _P]),
+        "bayes": dict(
+            aim_predict=[ctypes.POINTER(_PredCfg), st, _I, _I, _P, _P,
+                         ctypes.POINTER(_AimTabs), _I, _P, _P, _P, _P, _P],
+            nb_predict=[ctypes.POINTER(_PredCfg), st, _I, _I, _P, _P, _P, _P,
+                        _F, _I, _P, _P, _P, _P, _P]),
+        "cooperative": dict(cooperative_act=[cfg, st, _I, _I, _P, _P, _P,
+                                             _P]),
     }[name]
     for entry, argtypes in entries.items():
         fn = getattr(lib, f"{entry}_launch")
@@ -951,14 +975,15 @@ class _ArmSample(Kernel):
     def __call__(self, sp, mode: int, mask: torch.Tensor,
                  gumbel: torch.Tensor, tables=None, cur=None, player=None,
                  maxp: int = 0, eps_l: float = 0.0, greedy_w: float = 0.0,
-                 ucb_c: float = 0.0):
+                 ucb_c: float = 0.0, prior: Optional[torch.Tensor] = None):
         """The local bandits of one node per game (``ops.arms.arm_sample``
         with ``mode`` its index in ``ops.arms.MODES``).  ``mask`` int32
         ``[B, H, W, 23+T+D*D]``; uniform mode (0): ``gumbel`` float32 ``[B,
         K, H, W, A]``, returns (arms int32 ``[B, K, H, W]``, None); the
         tree rules: ``gumbel`` ``[B, H, W, A]``, ``tables`` (tvis int32,
         tacc float32 ``[B, N+1, H, W, A]``, nvis int32 ``[B, N+1]``),
-        ``cur``/``player`` int32 ``[B]``, returns (arms int32 ``[B, H,
+        ``cur``/``player`` int32 ``[B]``, the informed mode (4) also
+        ``prior`` float32 ``[B, H, W, A]``, returns (arms int32 ``[B, H,
         W]``, action int32 ``[B, H, W, 7]``)."""
         dev = mask.device
         B, H, W = mask.shape[:3]
@@ -983,11 +1008,16 @@ class _ArmSample(Kernel):
             pp = _check("player", player, torch.int32, (B,), dev)
             arms = torch.empty((B, H, W), dtype=torch.int32, device=dev)
             act = torch.empty((B, H, W, 7), dtype=torch.int32, device=dev)
+        if (mode == 4) != (prior is not None):
+            raise ValueError("arm_sample: the informed mode (and only it) "
+                             "takes a prior")
+        pr = (_check("prior", prior, torch.float32, (B, H, W, A), dev)
+              if prior is not None else None)
         cfg = _ArmCfg(H=H, W=W, T=T, D=sp.diam, A=A, M=M, n1=n1)
         with torch.cuda.device(dev):
             self._launch(ctypes.byref(cfg), B, int(mode), K, mask.data_ptr(),
                          gumbel.data_ptr(), tv, ta, nv, cp, pp, int(maxp),
-                         float(eps_l), float(greedy_w), float(ucb_c),
+                         float(eps_l), float(greedy_w), float(ucb_c), pr,
                          arms.data_ptr(),
                          act.data_ptr() if act is not None else None,
                          _stream(dev))
@@ -1602,6 +1632,136 @@ class _DslTarget(Kernel):
         return rel, found
 
 
+def _pred_cfg(cfg: EngineConfig, sp, barr, sizes, carry_max) -> _PredCfg:
+    """The learned models' kernel config: the board, the arm catalog, the
+    barracks-like types and the features' column offsets."""
+    if len(barr) > MAXNB or len(sizes) > NF_PRED:
+        raise ValueError("learned models: too many barracks types or "
+                         "features")
+    if sp.n_arms > 128:
+        raise ValueError("learned models: at most 128 arms a cell")
+    pc = _PredCfg(H=cfg.height, W=cfg.width, T=cfg.num_types, D=sp.diam,
+                  A=sp.n_arms, M=23 + cfg.num_types + sp.diam * sp.diam,
+                  nbarr=len(barr), S=int(sum(sizes)), carry_max=carry_max)
+    pc.barr[:len(barr)] = [int(b) for b in barr]
+    offs = [0]
+    for n in sizes[:-1]:
+        offs.append(offs[-1] + int(n))
+    pc.off[:len(offs)] = offs
+    return pc
+
+
+def _pred_io(name, state, mask, player, cfg, sp, mode, gumbel, out_modes,
+             sample_mode):
+    """The learned models' common checks and outputs: (state pointers,
+    batch, me, players pointer, mask pointer, gumbel pointer, the float
+    output or None, the arms and actions or None)."""
+    stp, B = _state_p(state, cfg)
+    dev = state.utype.device
+    H, W, A = cfg.height, cfg.width, sp.n_arms
+    M = 23 + cfg.num_types + sp.diam * sp.diam
+    mp = _check("mask", mask, torch.int32, (B, H, W, M), dev)
+    if (mode == sample_mode) != (gumbel is not None):
+        raise ValueError(f"{name}: gumbel noise is read in the sampling "
+                         "mode only")
+    gp = (_check("gumbel", gumbel, torch.float32, (B, H, W, A), dev)
+          if gumbel is not None else None)
+    out = arms = act = None
+    if mode in out_modes:
+        out = torch.empty((B, H, W, A), dtype=torch.float32, device=dev)
+    else:
+        arms = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+        act = torch.empty((B, H, W, 7), dtype=torch.int32, device=dev)
+    me, players = _player(player, B, dev)
+    return stp, B, me, players, mp, gp, out, arms, act
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+class _AimPredict(Kernel):
+    def __call__(self, pm, state: State, mask: torch.Tensor, player,
+                 mode: int, gumbel: Optional[torch.Tensor] = None):
+        """K14a (``ml.pretrained.aim_predict`` with ``mode`` its index in
+        ``ml.pretrained.MODES``) of ``pm`` (a ``PretrainedBayes`` whose
+        tables lie on the state's device) for ``player`` (an int or int32
+        ``[B]``): the logits or the prior float32 ``[B, H, W, A]``, or
+        (arms int32 ``[B, H, W]``, action int32 ``[B, H, W, 7]``)."""
+        cfg, sp = pm.cfg, pm.sp
+        dev = state.utype.device
+        T, A = cfg.num_types, sp.n_arms
+        S = int(sum(pm.feature_sizes))
+        ptrs = dict(
+            log_prior=_check("log_prior", pm.log_prior, torch.float32,
+                             (T, A), dev),
+            cpd=_check("cpd_cat", pm.cpd_cat, torch.float32, (T, A, S), dev),
+            log_tf=_check("log_tf", pm.log_tf, torch.float32, (T, 6, 6), dev),
+            nf_base=_check("nf_base", pm.nf_base, torch.float32, (T,), dev),
+            calib=_check("calibration", pm.calibration, torch.float32, (T,),
+                         dev),
+            arm_type=_check("arm_type", pm.arm_type, torch.int32, (A,), dev))
+        tabs = _AimTabs(**ptrs)
+        pc = _pred_cfg(cfg, sp, cfg.barracks_like, pm.feature_sizes,
+                       pm.feature_sizes[0] - 1)
+        stp, B, me, players, mp, gp, out, arms, act = _pred_io(
+            "aim_predict", state, mask, player, cfg, sp, mode, gumbel,
+            (0, 1), 2)
+        if B == 0:
+            return out if out is not None else (arms, act)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(pc), ctypes.byref(stp), B, me, players,
+                         mp, ctypes.byref(tabs), int(mode), gp, _ptr(out),
+                         _ptr(arms), _ptr(act), _stream(dev))
+        return out if out is not None else (arms, act)
+
+
+class _NbPredict(Kernel):
+    def __call__(self, tab, cfg: EngineConfig, sp, state: State,
+                 mask: torch.Tensor, player, mode: int,
+                 gumbel: Optional[torch.Tensor] = None):
+        """K14b (``ml.bayes.nb_predict`` with ``mode`` its index in
+        ``ml.bayes.MODES``; ``sp`` the arm space) of the model tables
+        ``tab`` (an
+        ``ml.bayes.NBTables`` on the state's device): the log posterior
+        float32 ``[B, H, W, A]``, or (arms int32 ``[B, H, W]``, action
+        int32 ``[B, H, W, 7]``)."""
+        dev = state.utype.device
+        A, S = sp.n_arms, int(sum(tab.sizes))
+        lp = _check("log_prior", tab.log_prior, torch.float32, (A,), dev)
+        lc = _check("logc", tab.logc, torch.float32, (A, S), dev)
+        pc = _pred_cfg(cfg, sp, cfg.barracks_like, tab.sizes, tab.sizes[0] - 1)
+        stp, B, me, players, mp, gp, out, arms, act = _pred_io(
+            "nb_predict", state, mask, player, cfg, sp, mode, gumbel, (0,),
+            1)
+        if B == 0:
+            return out if out is not None else (arms, act)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(pc), ctypes.byref(stp), B, me, players,
+                         mp, lp, lc, float(tab.c), int(mode), gp, _ptr(out),
+                         _ptr(arms), _ptr(act), _stream(dev))
+        return out if out is not None else (arms, act)
+
+
+class _CooperativeAct(Kernel):
+    def __call__(self, cfg: EngineConfig, state: State, player,
+                 nets: torch.Tensor) -> torch.Tensor:
+        """K14c (``bots.cooperative.cooperative_act``) for ``player`` (an
+        int or int32 ``[B]``) from the per-type networks' output float32
+        ``[B, H*W, H*W + T + 1]``: int32 ``[B, H, W, 7]`` actions."""
+        stp, B = _state_p(state, cfg)
+        dev = state.utype.device
+        H, W, T = cfg.height, cfg.width, cfg.num_types
+        np_ = _check("nets", nets, torch.float32, (B, H * W, H * W + T + 1),
+                     dev)
+        act = torch.empty((B, H, W, 7), dtype=torch.int32, device=dev)
+        me, players = _player(player, B, dev)
+        with torch.cuda.device(dev):
+            self._launch(ctypes.byref(_cfg(cfg)), ctypes.byref(stp), B, me,
+                         players, np_, act.data_ptr(), _stream(dev))
+        return act
+
+
 # ``replaces``: the JAX function each kernel stands for (file:line)
 ACTOR = _Actor("actor", "microrts_tpu/engine/kernel.py:742")  # + scripted.py:69
 DECODE = _Decode("decode", "microrts_tpu/env/gridnet.py:139")
@@ -1678,13 +1838,22 @@ RANGE_COVER = _RangeCover("range_cover", "microrts_tpu/synth/dsl.py:319",
 # + dsl.py:410-420 (the seven target policies)
 DSL_TARGET = _DslTarget("dsl_target", "microrts_tpu/synth/dsl.py:382",
                         "synth")
+# + pretrained.py:256 (_reserved_plane), :267 (compute_features_java),
+# :370-404 (the bot's draw, make_prior_fn's normalisation)
+AIM_PREDICT = _AimPredict("aim_predict", "microrts_tpu/ml/pretrained.py:326",
+                          "bayes")
+# + bayes.py:63 (compute_features), :249-264 (bayes_bot's draw)
+NB_PREDICT = _NbPredict("nb_predict", "microrts_tpu/ml/bayes.py:223", "bayes")
+COOPERATIVE_ACT = _CooperativeAct("cooperative_act",
+                                  "microrts_tpu/bots/cooperative.py:100",
+                                  "cooperative")
 KERNELS = (ACTOR, DECODE, ISSUE_ENV, CYCLE, EPILOGUE, SPLICE_OBS, SAMPLE,
            LOGPROB, LOGPROB_BWD, RUSH, EVENT_JUMP, EVALUATE, ARM_SAMPLE,
            ARMS_TO_ACTION, MCTS_DESCEND, MCTS_BACKPROP, ENUM_NEXT,
            MINIMAX_STEP, ISSUE, PO_STATE, OBS_PO, REROOT, BELIEVE,
            ENV_HEALTH, DISTANCE_FIELDS, DESCEND, DISTANCE_FIELD2,
            DESCEND_EXCLUDING, EXPERT_MACRO, EXPERT_DETAILED, RANGE_COVER,
-           DSL_TARGET)
+           DSL_TARGET, AIM_PREDICT, NB_PREDICT, COOPERATIVE_ACT)
 
 
 def reset_counts() -> None:

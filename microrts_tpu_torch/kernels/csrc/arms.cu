@@ -2,7 +2,8 @@
 // over the arm catalog (K12b).
 //
 // Replaces the JAX package's arm_masks (microrts_tpu/ops/arms.py:60),
-// naive_mcts_bot's local_sample (microrts_tpu/bots/treesearch.py:196-274),
+// naive_mcts_bot's local_sample (microrts_tpu/bots/treesearch.py:196-274,
+// the informed branch of InformedNaiveMCTS :259-271 included),
 // sample_arms (ops/arms.py:121) and arms_to_action (ops/arms.py:82); in
 // uniform mode uct_tree_bot's sample_cands (treesearch.py:646).
 //
@@ -28,9 +29,10 @@
 // fast math), in the JAX code's order, so that the kernel equals the plain
 // PyTorch version on the card bit for bit; the categorical is the first
 // maximum of logf(w + 1e-20) + g, as jax.random.categorical takes it.
-#include "common.cuh"
+#include "arms.cuh"
 
-enum { M_UNIFORM = 0, M_EGREEDY = 1, M_UCB = 2, M_UNIT_UCT = 3 };
+enum { M_UNIFORM = 0, M_EGREEDY = 1, M_UCB = 2, M_UNIT_UCT = 3,
+       M_INFORMED = 4 };
 
 struct ArmCfg {
   int H, W, T, D;   // board, unit types, attack window diameter
@@ -38,47 +40,14 @@ struct ArmCfg {
   int n1;           // tree rows a game (N + 1)
 };
 
-// Legality of arm a for a cell whose packed mask is m.
-__device__ __forceinline__ bool arm_legal(const int32_t* m, int a, int T) {
-  if (!m[0]) return false;
-  if (a == 0) return true;
-  if (a < 13) return m[6 + a] != 0;  // move / harvest / return channels
-  const int ab = 13 + 4 * T;
-  if (a < ab) {
-    const int pj = a - 13;
-    return m[19 + pj / T] != 0 && m[23 + pj % T] != 0;
-  }
-  return m[23 + T + (a - ab)] != 0;
-}
-
-#define FULL_MASK 0xffffffffu
-
-// (bv, bi) <- (v, i) where v is larger, or equal at a smaller index: the
-// first maximum, as argmax takes it.
-__device__ __forceinline__ void take_max(float& bv, int& bi, float v,
-                                         int i) {
-  if (v > bv || (v == bv && i < bi)) { bv = v; bi = i; }
-}
-
-// The warp's first maximum of the lanes' (bv, bi); 0 where no lane saw a
-// value above -inf (bi still INF_I), as a serial strict-> scan from -inf
-// at index 0 leaves it.
-__device__ __forceinline__ int warp_first_max(float bv, int bi) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(FULL_MASK, bv, o);
-    const int oi = __shfl_xor_sync(FULL_MASK, bi, o);
-    take_max(bv, bi, ov, oi);
-  }
-  return bi == INF_I ? 0 : bi;
-}
-
 __global__ void arm_sample_kernel(ArmCfg cfg, int mode, int K,
                                   const int32_t* mask, const float* gumbel,
                                   const int32_t* tvis, const float* tacc,
                                   const int32_t* nvis, const int32_t* cur,
                                   const int32_t* player, int maxp,
                                   float eps_l, float greedy_w, float ucb_c,
-                                  int32_t* arms, int32_t* act) {
+                                  const float* prior, int32_t* arms,
+                                  int32_t* act) {
   extern __shared__ int s_list[];  // the cells that can act
   const int HW = cfg.H * cfg.W, A = cfg.A, T = cfg.T;
   const int b = blockIdx.x / K, k = blockIdx.x % K;
@@ -149,9 +118,12 @@ __global__ void arm_sample_kernel(ArmCfg cfg, int mode, int K,
     bool any_w = false;     // any positive weight
     float wv = 0.0f;        // egreedy: the visited-arm weight eps_l / nleg
     int best = 0;           // egreedy: the greedy arm
+    bool pri_pos = false;   // informed: some prior weight is positive
     bool any_unv = false;
 
-    if (mode == M_EGREEDY) {
+    const float* pri =
+        prior != nullptr ? prior + ((size_t)b * HW + c) * A : nullptr;
+    if (mode == M_EGREEDY || mode == M_INFORMED) {
       int nleg = 0;
       float bv = NEG_INF;
       int bi = INF_I;
@@ -170,6 +142,21 @@ __global__ void arm_sample_kernel(ArmCfg cfg, int mode, int K,
       wv = __fdiv_rn(eps_l, (float)(nleg > 1 ? nleg : 1));
       any_w = any_unv || (nleg > 0 && (wv > 0.0f
                                        || __fadd_rn(wv, greedy_w) > 0.0f));
+      if (mode == M_INFORMED) {
+        // the prior's weights; a cell none of whose weights is positive
+        // weighs its unvisited legal arms alike (treesearch.py:265-271)
+        bool pos = false;
+        for (int a = lane; a < A; a += 32) {
+          const bool la = arm_legal(m, a, T);
+          const float w = any_unv ? ((la && tv[a] == 0) ? pri[a] : 0.0f)
+                          : la ? __fadd_rn(__fmul_rn(eps_l, pri[a]),
+                                           a == best ? greedy_w : 0.0f)
+                               : 0.0f;
+          pos = pos || w > 0.0f;
+        }
+        pri_pos = __any_sync(FULL_MASK, pos);
+        any_w = pri_pos || any_unv;
+      }
     } else if (mode == M_UCB || mode == M_UNIT_UCT) {
       int last_unv = -1;
       float bv = NEG_INF;
@@ -208,7 +195,17 @@ __global__ void arm_sample_kernel(ArmCfg cfg, int mode, int K,
       if (mode == M_UNIFORM) {
         w = arm_legal(m, a, T) ? 1.0f : 0.0f;
       } else if (any_w) {
-        if (mode == M_EGREEDY) {
+        if (mode == M_INFORMED) {
+          const bool la = arm_legal(m, a, T);
+          if (!pri_pos) {
+            w = (la && tv[a] == 0) ? 1.0f : 0.0f;
+          } else if (any_unv) {
+            w = (la && tv[a] == 0) ? pri[a] : 0.0f;
+          } else {
+            w = la ? __fadd_rn(__fmul_rn(eps_l, pri[a]),
+                               a == best ? greedy_w : 0.0f) : 0.0f;
+          }
+        } else if (mode == M_EGREEDY) {
           const bool la = arm_legal(m, a, T);
           if (any_unv) {
             w = (la && tv[a] == 0) ? 1.0f : 0.0f;
@@ -238,23 +235,26 @@ __global__ void arms_to_action_kernel(int n, int T, int D,
 
 // mode: M_UNIFORM (K draws, gumbel [B, K, H, W, A], no tables) or one of
 // the tree rules (K = 1; tvis/tacc [B, n1, H, W, A], nvis [B, n1], cur and
-// player [B]); arms [B, K, H, W] out, act [B, H, W, 7] out or null.
+// player [B]; M_INFORMED also prior [B, H, W, A]); arms [B, K, H, W] out,
+// act [B, H, W, 7] out or null.
 extern "C" int arm_sample_launch(const ArmCfg* cfg, int batch, int mode,
                                  int K, const int32_t* mask,
                                  const float* gumbel, const int32_t* tvis,
                                  const float* tacc, const int32_t* nvis,
                                  const int32_t* cur, const int32_t* player,
                                  int maxp, float eps_l, float greedy_w,
-                                 float ucb_c, int32_t* arms, int32_t* act,
+                                 float ucb_c, const float* prior,
+                                 int32_t* arms, int32_t* act,
                                  void* stream) {
-  if (mode < M_UNIFORM || mode > M_UNIT_UCT || K < 1
-      || (mode != M_UNIFORM && K != 1))
+  if (mode < M_UNIFORM || mode > M_INFORMED || K < 1
+      || (mode != M_UNIFORM && K != 1)
+      || ((mode == M_INFORMED) != (prior != nullptr)))
     return (int)cudaErrorInvalidValue;
   const int HW = cfg->H * cfg->W;
   arm_sample_kernel<<<batch * K, block_threads(HW), HW * sizeof(int),
                       (cudaStream_t)stream>>>(
       *cfg, mode, K, mask, gumbel, tvis, tacc, nvis, cur, player, maxp,
-      eps_l, greedy_w, ucb_c, arms, act);
+      eps_l, greedy_w, ucb_c, prior, arms, act);
   return (int)cudaGetLastError();
 }
 

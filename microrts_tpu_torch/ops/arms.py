@@ -21,8 +21,9 @@ arm index             unit action
 
 ``arm_sample`` is the search bots' per-cell local bandit (K12b): the
 legality of every arm, a distribution over the legal arms (uniform, the
-NaiveMCTS epsilon-greedy rule, MLPS's UCB1 or UCTUnitActions' one-unit
-UCB1, treesearch.py:196-274), one Gumbel-max draw per cell and the
+NaiveMCTS epsilon-greedy rule, InformedNaiveMCTS's prior-weighted rule,
+MLPS's UCB1 or UCTUnitActions' one-unit UCB1, treesearch.py:196-274),
+one Gumbel-max draw per cell and the
 gridnet action of the drawn arms.  On CUDA tensors it is the
 ``arm_sample`` kernel, ``arms_to_action`` the ``arms_to_action`` kernel;
 CPU tensors (or ``plain=True``) take the plain versions.
@@ -41,7 +42,7 @@ from ..engine.types import ATTACK, HARVEST, MOVE, NONE, PRODUCE, RETURN
 
 I32 = torch.int32
 F32 = torch.float32
-MODES = ("uniform", "egreedy", "ucb", "unit_uct")
+MODES = ("uniform", "egreedy", "ucb", "unit_uct", "informed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +166,8 @@ def arm_sample(sp: ArmSpace, mask: torch.Tensor, gumbel: torch.Tensor,
                cur: Optional[torch.Tensor] = None,
                player: Optional[torch.Tensor] = None, maxp: int = 0,
                eps_l: float = 0.0, greedy_w: float = 0.0,
-               ucb_c: float = 0.0, plain: bool = False):
+               ucb_c: float = 0.0, prior: Optional[torch.Tensor] = None,
+               plain: bool = False):
     """The local bandits of one node per game (K12b).
 
     ``mask`` is the env's packed int32 mask ``[B, H, W, 23+T+D*D]`` of the
@@ -181,20 +183,30 @@ def arm_sample(sp: ArmSpace, mask: torch.Tensor, gumbel: torch.Tensor,
       ``maxp``); ``gumbel`` ``[B, H, W, A]``; ``eps_l`` and ``greedy_w``
       (the greedy arm's extra weight, ``1 - eps_l`` as the caller rounds
       it) and ``ucb_c`` are the rules' constants; returns (arms int32
-      ``[B, H, W]``, gridnet action int32 ``[B, H, W, 7]``).
+      ``[B, H, W]``, gridnet action int32 ``[B, H, W, 7]``);
+    - ``"informed"``: ``"egreedy"`` with the learned prior float32 ``[B,
+      H, W, A]`` (``ml.pretrained.make_prior_fn``) in place of the
+      uniform weights (InformedNaiveMCTSNode.java:181-238,
+      treesearch.py:259-271): unvisited arms weighted by the prior, else
+      ``eps_l * prior`` plus ``greedy_w`` on the greedy arm, and a cell
+      none of whose weights is positive uniform over its unvisited arms.
     """
     if mode not in MODES:
         raise ValueError(f"arm_sample: unknown mode {mode!r}")
+    if (mode == "informed") != (prior is not None):
+        raise ValueError("arm_sample: the informed mode (and only it) takes "
+                         "a prior")
     if not plain and mask.device.type != "cpu":
         return KN.ARM_SAMPLE(sp, MODES.index(mode), mask, gumbel, tables,
-                             cur, player, maxp, eps_l, greedy_w, ucb_c)
+                             cur, player, maxp, eps_l, greedy_w, ucb_c,
+                             prior)
     return arm_sample_plain(sp, mask, gumbel, mode, tables, cur, player,
-                            maxp, eps_l, greedy_w, ucb_c)
+                            maxp, eps_l, greedy_w, ucb_c, prior)
 
 
 def arm_sample_plain(sp: ArmSpace, mask, gumbel, mode="uniform",
                      tables=None, cur=None, player=None, maxp=0,
-                     eps_l=0.0, greedy_w=0.0, ucb_c=0.0):
+                     eps_l=0.0, greedy_w=0.0, ucb_c=0.0, prior=None):
     la = arm_masks_packed(sp, mask)
     can = mask[..., 0].bool()
     if mode == "uniform":
@@ -240,13 +252,22 @@ def arm_sample_plain(sp: ArmSpace, mask, gumbel, mode="uniform",
                            _f32(1.0, mean), _f32(0.0, mean))
         arms = sample_arms(sp, gumbel, dist, acting)
     else:
-        nleg = la.sum(-1, keepdim=True, dtype=I32).clamp(min=1).to(F32)
         best = first_max(torch.where(la & (tv > 0), mean, ninf))
-        greedy = arm_ids == best[..., None]
-        dist_vis = (_f32(eps_l, mean) / nleg
-                    + torch.where(greedy, _f32(greedy_w, mean),
-                                  _f32(0.0, mean)))
-        dist = torch.where(any_unv, unv.to(F32),
-                           torch.where(la, dist_vis, _f32(0.0, mean)))
+        zero = _f32(0.0, mean)
+        gw = torch.where(arm_ids == best[..., None], _f32(greedy_w, mean),
+                         zero)
+        if mode == "informed":
+            dist_vis = _f32(eps_l, mean) * prior + gw
+            dist = torch.where(any_unv, torch.where(unv, prior, zero),
+                               torch.where(la, dist_vis, zero))
+            # a cell none of whose weights is positive: uniform over its
+            # unvisited legal arms
+            zrow = ~(dist > 0).any(-1, keepdim=True)
+            dist = torch.where(zrow & unv, _f32(1.0, mean), dist)
+        else:
+            nleg = la.sum(-1, keepdim=True, dtype=I32).clamp(min=1).to(F32)
+            dist_vis = _f32(eps_l, mean) / nleg + gw
+            dist = torch.where(any_unv, unv.to(F32),
+                               torch.where(la, dist_vis, zero))
         arms = sample_arms(sp, gumbel, dist, can)
     return arms, arms_to_action_plain(sp, arms)

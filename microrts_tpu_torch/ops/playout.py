@@ -196,16 +196,33 @@ def make_playout(env, playout_len: int, eval_fn: Callable,
     player)`` and discounted by ``gamma^((t_final - t0) / 10)``;
     ``playout_len=0`` evaluates the state itself.  With ``n_eval > 1``
     each state is played out ``n_eval`` times (lanes ``b * n_eval + i``
-    of ``noise``: ``[n_decisions, 2, B * n_eval, H, W, 2]``) and the
-    values are averaged.  ``live`` (bool ``[B]``) are the lanes played
-    out; the others' values are their states' own.  ``u01``: the damage
-    uniforms float32 ``[playout.n_cycles, B * n_eval, H, W]``.
-    ``playout.n_decisions`` is the budget."""
+    of ``noise``) and the values are averaged.  ``noise[d][p]`` is side
+    ``p``'s draw at decision ``d``: ``playout.draw(gen, lanes)`` makes
+    them, RandomBiasedAI's uniforms ``[n_decisions, 2, lanes, H, W, 2]``
+    or, for a ``rollout_bot`` that is an ``Opponent``, its ``draw``:
+    stacked the same way where it is a tensor (a pretrained model's
+    Gumbels ``[n_decisions, 2, lanes, H, W, A]``), else a list of
+    ``n_decisions`` pairs (None for a deterministic bot, a NamedTuple
+    such as a ``SingleUnitNoise``).  ``live`` (bool
+    ``[B]``) are the lanes played out; the others' values are their
+    states' own.  ``u01``: the damage uniforms float32
+    ``[playout.n_cycles, B * n_eval, H, W]``.  ``playout.n_decisions`` is
+    the budget."""
     if rollout_bot is None:
         from ..bots.scripted import random_bot
         rollout_bot = random_bot(env, 5.0)
     if n_decisions is None:
         n_decisions = decisions_for(playout_len)
+    rollout_draw = getattr(rollout_bot, "draw", None)
+
+    def draw(gen: torch.Generator, lanes: int):
+        if rollout_draw is None:
+            return playout_noise(env, gen, n_decisions, lanes)
+        nz = [(rollout_draw(gen, lanes), rollout_draw(gen, lanes))
+              for _ in range(n_decisions)]
+        if isinstance(nz[0][0], torch.Tensor):
+            return torch.stack([torch.stack(p) for p in nz])
+        return nz
 
     def act2(s, nz):
         return rollout_bot(s, 0, nz[0]), rollout_bot(s, 1, nz[1])
@@ -239,6 +256,7 @@ def make_playout(env, playout_len: int, eval_fn: Callable,
 
     playout.n_decisions = n_decisions
     playout.n_cycles = playout_cycles(n_decisions) if playout_len > 0 else 0
+    playout.draw = draw
     return playout
 
 

@@ -1,4 +1,5 @@
-"""Policy checkpoints as npz files in the JAX package's layout.
+"""Policy checkpoints as npz files in the JAX package's layout, and the
+learned models carried over from the JAX package (``learned_from_jax``).
 
 ``microrts_tpu.utils.checkpoint.save_pytree`` writes a flax parameter tree
 as ``leaf_{i}`` arrays in ``jax.tree.flatten`` order (sorted keys at every
@@ -61,3 +62,33 @@ def load_params(path: str, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     sd = params_from_flax(tree)
     model.load_state_dict(sd)
     return sd
+
+
+def learned_from_jax(obj, env):
+    """A learned model of the JAX package as the port's, on ``env.device``:
+    an ``ml.pretrained.PretrainedBayes`` (its float32 tables), an
+    ``ml.bayes.NaiveBayesModel`` (its counts) or CooperativeAI's ``[T, G]``
+    genome matrix (float32).  Read by attribute, without JAX."""
+    dev = env.device
+
+    def f32(a):
+        return torch.as_tensor(np.array(a), dtype=torch.float32,
+                               device=dev)
+    if hasattr(obj, "log_prior"):
+        from ..ml.pretrained import PretrainedBayes
+        from ..ops.arms import arm_space
+        cpds = [f32(c) for c in obj.log_cpds]
+        return PretrainedBayes(
+            cfg=env.cfg.engine, sp=arm_space(env), log_prior=f32(obj.log_prior),
+            log_cpds=cpds, log_tf=f32(obj.log_tf), nf_base=f32(obj.nf_base),
+            calibration=f32(obj.calibration),
+            arm_type=torch.as_tensor(np.array(obj.arm_type),
+                                     dtype=torch.int32, device=dev),
+            feature_sizes=tuple(int(v) for v in obj.feature_sizes),
+            cpd_cat=torch.cat(cpds, -1).contiguous())
+    if hasattr(obj, "cpds"):
+        from ..ml.bayes import NaiveBayesModel
+        return NaiveBayesModel(prior=np.array(obj.prior),
+                               cpds=[np.array(c) for c in obj.cpds],
+                               calibration=float(obj.calibration))
+    return f32(obj)

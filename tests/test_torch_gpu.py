@@ -86,7 +86,8 @@ def test_kernel_path_equals_plain_on_card(map_rel):
         obs_po=0, mcts_reroot=0, believe_update=0, env_health=0,
         distance_fields=0, descend_direction=0, distance_field2=0,
         descend_direction_excluding=0, expert_macro=0, expert_detailed=0,
-        range_cover=0, dsl_target=0)
+        range_cover=0, dsl_target=0, aim_predict=0, nb_predict=0,
+        cooperative_act=0)
 
 
 def _states(env, B, ticks, seed):
@@ -406,8 +407,9 @@ def test_update_kernel_path_matches_plain_on_card():
             assert not any(counts.values()), counts
         else:
             # every kernel of training; the decision-frame path's, the
-            # tree search's, the minimax search's, the fog's and the
-            # stateful bots' not
+            # tree search's, the minimax search's, the fog's, the
+            # stateful bots', the scripted strategies' and the learned
+            # models' not
             search = ("event_jump", "evaluate", "arm_sample",
                       "arms_to_action", "mcts_descend", "mcts_backprop",
                       "enum_next", "minimax_step", "issue", "po_state",
@@ -415,7 +417,8 @@ def test_update_kernel_path_matches_plain_on_card():
                       "env_health", "distance_fields", "descend_direction",
                       "distance_field2", "descend_direction_excluding",
                       "expert_macro", "expert_detailed", "range_cover",
-                      "dsl_target")
+                      "dsl_target", "aim_predict", "nb_predict",
+                      "cooperative_act")
             assert all(v > 0 for n, v in counts.items()
                        if n not in search), counts
             assert not any(counts[n] for n in search), counts
@@ -1631,3 +1634,181 @@ def test_slice10_kernels_reject_bad_input_on_card():
     bot = DS.compile_program(env, (DS.Attack("All", "Random"),))
     with pytest.raises(ValueError):
         bot(s, 0, None)
+
+
+# ----------------------------------------------------------------------
+# slice 11: the learned models (K14a aim_predict, K14b nb_predict, K14c
+# cooperative_act, K12b's informed mode).  Tolerance: exact (the plain
+# versions add in the kernels' order; atan2f, expf, logf as PyTorch
+# rounds them on the card).
+
+def _nb_model(sp, sizes, seed):
+    """A naive-Bayes model of seeded counts."""
+    import numpy as np
+    from microrts_tpu_torch.ml.bayes import NaiveBayesModel
+    rng = np.random.default_rng(seed)
+    return NaiveBayesModel(
+        prior=rng.integers(0, 50, sp.n_arms).astype(np.float64),
+        cpds=[rng.integers(0, 20, (sp.n_arms, x)).astype(np.float64)
+              for x in sizes], calibration=0.35)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("map_rel", MAPS)
+def test_learned_model_kernels_equal_plain_on_card(map_rel):
+    """AIM_PREDICT in its four modes, NB_PREDICT in its three, both
+    players and a per-env player vector, COOPERATIVE_ACT on the default
+    genomes' nets and ARM_SAMPLE's informed mode on random visit tables
+    with the model's prior, against the plain versions on random and rush
+    states: exact."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import cooperative as CO
+    from microrts_tpu_torch.config import pretrained_wr
+    from microrts_tpu_torch.ml import bayes as NB
+    from microrts_tpu_torch.ml import pretrained as PT
+    from microrts_tpu_torch.ops import arms as AR
+    dev = torch.device("cuda")
+    B = 64
+    kenv = GridnetEnv(asset_path(map_rel), device=dev)
+    penv = GridnetEnv(asset_path(map_rel), device=dev, plain=True)
+    sp = AR.arm_space(kenv)
+    A = sp.n_arms
+    pm = PT.load_pretrained(pretrained_wr(), kenv)
+    cfg = kenv.cfg.engine
+    tab = NB.nb_tables(_nb_model(sp, NB.feature_sizes(cfg), 3), dev)
+    coop = CO.cooperative_bot(kenv, seed=1).bot   # genomes whose units act
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    states = _random_states(penv, B, 30, 21)[1:] + _rush_states(kenv, B,
+                                                                 100, 22)
+    KN.reset_counts()
+    acted = 0
+    for s in states:
+        vec = (torch.rand(B, generator=g, device=dev) < 0.5).to(torch.int32)
+        for p in (0, 1, vec):
+            mask = kenv.masks(s, p)
+            gum = gumbel_noise((B, kenv.h, kenv.w, A), g, dev)
+            for mode in PT.MODES:
+                gg = gum if mode == "sample" else None
+                k = PT.aim_predict(pm, s, mask, p, mode, gg)
+                q = PT.aim_predict(pm, s, mask, p, mode, gg, plain=True)
+                for a, b in zip(k if isinstance(k, tuple) else (k,),
+                                q if isinstance(q, tuple) else (q,)):
+                    assert torch.equal(a, b), mode
+            for mode in NB.MODES:
+                gg = gum if mode == "sample" else None
+                k = NB.nb_predict(tab, cfg, sp, s, mask, p, mode, gg)
+                q = NB.nb_predict(tab, cfg, sp, s, mask, p, mode, gg,
+                                  plain=True)
+                for a, b in zip(k if isinstance(k, tuple) else (k,),
+                                q if isinstance(q, tuple) else (q,)):
+                    assert torch.equal(a, b), mode
+            nets = CO.cooperative_nets(kenv, s, p, coop.genomes, coop.dims, 4)
+            ka = CO.cooperative_act(kenv, s, p, nets)
+            assert torch.equal(ka, CO.cooperative_act_plain(kenv, s, p, nets))
+            acted += int((ka[..., 0] > 0).sum())
+            pri = PT.aim_predict(pm, s, mask, p, "prior")
+            shape = (B, 3, kenv.h, kenv.w, A)
+            tvis = torch.randint(0, 3, shape, generator=g, device=dev,
+                                 dtype=torch.int32)
+            tvis[:, 0] = 0              # row 0 unvisited: the prior's draw
+            tacc = torch.randn(shape, generator=g, device=dev) * tvis
+            nvis = torch.randint(0, 40, (B, 3), generator=g, device=dev,
+                                 dtype=torch.int32)
+            cur = torch.randint(0, 3, (B,), generator=g, device=dev,
+                                dtype=torch.int32)
+            pl = p if isinstance(p, torch.Tensor) else torch.full(
+                (B,), p, dtype=torch.int32, device=dev)
+            args = (sp, mask, gum, "informed", (tvis, tacc, nvis), cur, pl,
+                    0, 0.3, 0.7, 0.05, pri)
+            k, q = AR.arm_sample(*args), AR.arm_sample(*args, plain=True)
+            assert torch.equal(k[0], q[0]) and torch.equal(k[1], q[1])
+    c = KN.counts()
+    assert c["aim_predict"] > 0 and c["nb_predict"] > 0
+    assert c["cooperative_act"] > 0 and c["arm_sample"] > 0
+    assert acted > 0
+
+
+@pytest.mark.gpu
+def test_learned_bots_equal_plain_on_card():
+    """InformedNaiveMCTS (reduced budget) decisions, whole trees and
+    actions, and UnitActionProbabilityDistributionAI, CooperativeAI and a
+    naive-Bayes bot playing WorkerRush (play_matches) through the kernels
+    equal the plain path with the same draws."""
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.bots import treesearch as TS
+    from microrts_tpu_torch.config import pretrained_wr
+    from microrts_tpu_torch.eval.tournament import play_matches
+    from microrts_tpu_torch.ml import bayes as NB
+    from microrts_tpu_torch.ops.arms import arm_space
+    path = asset_path("maps/8x8/basesWorkers8x8.xml")
+    kenv = GridnetEnv(path, device="cuda")
+    penv = GridnetEnv(path, device="cuda", plain=True)
+    s = _random_states(penv, 8, 20, 9)[-1]
+    kw = dict(n_playouts=6, max_nodes=12, max_children=4, max_depth=3,
+              playout_len=12)
+    out = []
+    for env in (kenv, penv):
+        bot = TS.informed_naive_mcts_bot(env, pretrained_wr(), **kw)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(11)
+        nz = bot.draw(g, s.batch)
+        KN.reset_counts()
+        tree = bot.bot.init_tree(s, 0)
+        bot.bot.search(tree, 0, s.time, nz)
+        out.append((tree, bot.bot.best_action(tree), KN.counts()))
+    (kt, ka, kc), (pt, pa, pc) = out
+    _tree_eq(kt, pt)
+    assert torch.equal(ka, pa)
+    assert not any(pc.values())
+    assert kc["aim_predict"] > kc["arm_sample"] > 0
+    sizes = NB.feature_sizes(kenv.cfg.engine)
+    for name in ("UnitActionProbabilityDistributionAI", "CooperativeAI",
+                 "nb"):
+        ws = []
+        for env in (kenv, penv):
+            bot = (NB.bayes_bot(env, _nb_model(arm_space(env), sizes, 4))
+                   if name == "nb" else make_bot(name, env))
+            ws.append(play_matches(env, bot, make_bot("WorkerRush", env),
+                                   16, max_cycles=60, seed=2))
+        assert (ws[0] == ws[1]).all(), name
+
+
+@pytest.mark.gpu
+def test_learned_kernels_reject_bad_input_on_card():
+    _need_card()
+    from microrts_tpu_torch import kernels as KN
+    from microrts_tpu_torch.config import pretrained_wr
+    from microrts_tpu_torch.ml import pretrained as PT
+    from microrts_tpu_torch.ops import arms as AR
+    env = GridnetEnv(asset_path("maps/8x8/basesWorkers8x8.xml"),
+                     device="cuda")
+    s = env.reset(4)
+    mask = env.masks(s, 0)
+    pm = PT.load_pretrained(pretrained_wr(), env)
+    with pytest.raises(ValueError):
+        PT.aim_predict(pm, s, mask, 0, "sample")             # no gumbel
+    with pytest.raises(ValueError):
+        KN.AIM_PREDICT(pm, s, mask[:2], 0, 0)                # batch
+    with pytest.raises(ValueError):
+        KN.AIM_PREDICT(pm, s, mask, 0, 0, torch.zeros(
+            (4, 8, 8, pm.sp.n_arms), device="cuda"))         # gumbel, logits
+    with pytest.raises(TypeError):
+        KN.AIM_PREDICT(pm, s, mask.float(), 0, 0)
+    sp = AR.arm_space(env)
+    gum = torch.zeros((4, 8, 8, sp.n_arms), device="cuda")
+    tabs = (torch.zeros((4, 2, 8, 8, sp.n_arms), dtype=torch.int32,
+                        device="cuda"),
+            torch.zeros((4, 2, 8, 8, sp.n_arms), device="cuda"),
+            torch.zeros((4, 2), dtype=torch.int32, device="cuda"))
+    z = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        AR.arm_sample(sp, mask, gum, "informed", tabs, z, z)  # no prior
+    with pytest.raises(ValueError):
+        KN.ARM_SAMPLE(sp, 4, mask, gum, tabs, z, z, 0, 0.3, 0.7, 0.0,
+                      gum[:2])
+    with pytest.raises(ValueError):
+        KN.COOPERATIVE_ACT(env.cfg.engine, s, 0,
+                           torch.zeros((4, 64, 64), device="cuda"))

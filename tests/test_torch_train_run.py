@@ -59,8 +59,10 @@ def test_run_refuses_what_is_not_ported():
                  "BS3_NaiveMCTS"):
         with pytest.raises(ValueError, match="stateful"):
             run.main(ARGS + ["--opponent", name])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run.main(ARGS + ["--opponent", "UnitActionProbabilityDistributionAI"])
+    # the learned models (item 11) are ported: no longer refused
+    _, ts = run.main(ARGS + ["--updates", "1", "--opponent",
+                             "UnitActionProbabilityDistributionAI"])
+    assert ts.update_count == 1
 
 
 def test_run_without_cpu_flag_needs_a_card():
